@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing a line:
+Phases, each printing lines tagged [k/6]:
   1. the device: torch/CUDA versions, the card's name and power limit;
-  2. building every kernel of the serving path from ``photon_tpu_torch/csrc``;
+  2. building every kernel from ``photon_tpu_torch/csrc``, one ``nvcc``
+     per source, all started together;
   3. each kernel against its plain PyTorch version on the card, over edge
-     shapes (pad slots, duplicate and out-of-range indices, no offsets,
-     empty batches), plus a bitwise check of a second launch;
+     shapes, plus a bitwise check of a second launch: K3 gather+margin
+     (pad slots, duplicate and out-of-range indices, no offsets, empty
+     batches); K1 dense and K2 padded-ELL value+gradient (every loss,
+     None offsets/weights, zero-weight rows, n = 0, 1 and a tile +- 1,
+     bf16 storage, K1 at D = 1 to 12008 (each form), K2 at
+     D = 1, 2048, 4096 and ELL widths 0, 5, 32, 33, 64 with empty
+     segments, duplicate and out-of-range ids);
   4. the serving main path at the width of the repo's serving benchmark
      model (one fixed-effect shard of 256 features, a per-user random
      effect over 10,000 users with 8 slots, 32 features per request, 10%
@@ -16,18 +22,29 @@ Phases, each printing a line:
      ``ServingEngine.from_model_dir`` on the card, ``warmup()``, then
      2,000 requests through submit/pump/drain, 100 single-request
      ``serve()`` calls and a forced-shed pass, every score checked
-     against a float64 numpy oracle built from the saved arrays;
-  5. times: per-stage serving latency and throughput, and each kernel at
-     the main-path shape and a throughput shape beside its plain version,
-     its byte bound and one PyTorch library call computing the same
-     function (a yardstick only; the port never calls it). Each is timed
-     in CUDA-graph replay (the card's time per call) and as back-to-back
-     eager calls (the host's issue rate where that is the slower).
+     against a float64 numpy oracle built from the saved arrays; per-stage
+     latency and throughput;
+  5. the training main path, through ``GlmOptimizationProblem.run`` and
+     ``train_generalized_linear_model`` on the card: dense L-BFGS at
+     ``bench.py::config_fe_throughput``'s width (1,000,000 x 1024, f32
+     then bf16 storage, cold then warm), ELL L-BFGS at ``run_fused_bench``'s
+     (65,536 x 32 slots, D = 2048, lambda 10 -> 1 -> 0.1 warm-started),
+     dense NEWTON at the flagship's fixed-effect width (100,000 x 256,
+     scored on 20,000 validation rows). Every evaluation of these f32 fits
+     must be one K1 or K2 launch and none two-pass; the L-BFGS fits are
+     held to a float64 solve of the same problem on the card, the NEWTON
+     fit to scipy's L-BFGS-B in float64 (coefficients and validation AUC);
+  6. times: each kernel at the main-path shapes (and a throughput shape;
+     for K1 also widths 4096 and 10,000, each of its two forms) beside its plain version, its byte bound and one PyTorch library call
+     computing the same function (a yardstick only; the port never calls
+     it), in CUDA-graph replay (the card's time per call) and as
+     back-to-back eager calls (the host's issue rate where that is slower).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
 Without a CUDA device, or without the package beside it, the script exits
-non-zero and prints no result. Imports nothing of JAX or photon_tpu.
+non-zero and prints no result.
+Imports nothing of JAX or photon_tpu.
 """
 
 from __future__ import annotations
@@ -52,6 +69,42 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 #: kernel vs plain version: f32 sums taken in another order
 ATOL = RTOL = 1e-5
+#: K1/K2 vs plain version, relative to the terms' magnitude sums with
+#: each margin's own rounding carried through (``_vg_scales``): the sums
+#: run in other orders than cuBLAS / index_add_. Largest readings on an
+#: H100 over two runs (chip_smoke.py, seed 0): 5.1e-7 and 6.1e-7 (K2
+#: cases, both at D = 1: every term into one column, which index_add_
+#: sums in no fixed order), 1.7e-7 (K1 cases), 2.2e-7 (timing shapes);
+#: the limit is about 3x the largest
+VG_RTOL = 2e-6
+#: rows per K1/K2 tile (csrc/fused_value_grad.cu kTileRows)
+VG_TILE = 32
+#: K1 widths: each form of csrc/fused_value_grad.cu. Rows in registers
+#: (a multiple of 8, D <= 8192) with 1 warp a row (1024), 2 (2000: the
+#: last columns of each lane's pieces unused), 8 (5000); the tile form with scalar loads (1, 7,
+#: 5001) and 16-byte loads (10000), and past its shared-memory accumulator
+#: (kSmemAccMax = 12,000 floats), in device memory (12001, 12008)
+VG_DENSE_DS = (1, 7, 1024, 2000, 5000, 5001, 10_000, 12_001, 12_008)
+#: K1 timing shapes past the main path's width, each about as many bytes
+#: as its 1M x 1024: rows in registers, 4 warps a row (D = 4096), and the
+#: tile form (D = 10,000 > 8192)
+K1_WIDE_SHAPES = ((250_000, 4096), (100_000, 10_000))
+#: training main path widths
+FE_N, FE_D = 1_000_000, 1024                      # config_fe_throughput
+ELL_N, ELL_K, ELL_D = 65_536, 32, 2048            # run_fused_bench
+ELL_LAMBDAS = (10.0, 1.0, 0.1)
+NEWTON_N, NEWTON_N_VAL, NEWTON_D = 100_000, 20_000, 256  # flagship FE
+#: L-BFGS fits against their float64 solve: relative objective gap and
+#: relative L2 coefficient distance, per fit, each about 10x the largest
+#: reading on an H100 (chip_smoke.py, seed 0), given beside it. The ELL
+#: fits stop at tolerance 1e-7, short of the optimum, hence their wider
+#: coefficient limit
+ORACLE_LIMITS = {"dense f32": (1e-11, 2e-5),    # 3.3e-13, 1.6e-6
+                 "dense bf16": (5e-9, 4e-4),    # 2.4e-10, 3.9e-5
+                 "ELL": (5e-7, 9e-3)}           # 5.1e-8, 9.0e-4
+#: NEWTON against scipy's L-BFGS-B: coefficient distance (reading 6.5e-8),
+#: AUC bar (bench.py:641's bar against sklearn)
+NEWTON_COEF_REL, AUC_BAR = 1e-6, 0.005
 
 # serving benchmark model width (bench.py's serving mode)
 D_GLOBAL, N_USERS, K_USER, NNZ = 256, 10_000, 8, 32
@@ -70,8 +123,8 @@ def card_line() -> str:
 
 
 def check_close(got: torch.Tensor, want: torch.Tensor, what: str,
-                scale: torch.Tensor = None) -> float:
-    """|got - want| <= ATOL + RTOL * scale, elementwise; ``scale`` is
+                scale: torch.Tensor = None, rtol: float = RTOL) -> float:
+    """|got - want| <= ATOL + rtol * scale, elementwise; ``scale`` is
     |want| by default. Where many terms are summed, pass the sum of the
     terms' magnitudes: a reordered f32 sum errs relative to that, not to
     a result that may have cancelled to near zero."""
@@ -85,10 +138,10 @@ def check_close(got: torch.Tensor, want: torch.Tensor, what: str,
         raise AssertionError(f"{what}: non-finite kernel output")
     err = (g - w).abs()
     ref = w.abs() if scale is None else scale.double().cpu()
-    bad = err > ATOL + RTOL * ref
+    bad = err > ATOL + rtol * ref
     if bad.any():
         raise AssertionError(f"{what}: {int(bad.sum())} values outside "
-                             f"atol {ATOL} rtol {RTOL}, max abs err "
+                             f"atol {ATOL} rtol {rtol}, max abs err "
                              f"{float(err.max()):.3e}")
     return float(err.max())
 
@@ -326,7 +379,7 @@ def serving_main_path(gm, rng, card: str) -> dict:
         raise AssertionError(f"engine staged on {engine.model.device}")
     winfo = engine.warmup()
     after_warmup = gm.launches
-    print(f"[4/5] model dir written in {write_s:.2f}s, loaded+staged in "
+    print(f"[4/6] model dir written in {write_s:.2f}s, loaded+staged in "
           f"{load_s:.2f}s, warmup {winfo['programs']} dispatches in "
           f"{winfo['seconds']:.3f}s, kernel builds {winfo['kernel_builds']}",
           flush=True)
@@ -383,7 +436,7 @@ def serving_main_path(gm, rng, card: str) -> dict:
     if stats["kernel_builds"]["steady"] != 0:
         raise AssertionError(f"kernel library built/loaded after warmup: "
                              f"{stats['kernel_builds']}")
-    print(f"[4/5] served {len(out)} + {len(single_out)} + {len(shed_out)} "
+    print(f"[4/6] served {len(out)} + {len(single_out)} + {len(shed_out)} "
           f"requests in {all_batches} batches; oracle rtol/atol "
           f"{RTOL}/{ATOL}: max abs err "
           f"{max(seen_a['max_abs_err'], seen_b['max_abs_err'], seen_c['max_abs_err']):.3e}; "
@@ -405,9 +458,9 @@ def serving_main_path(gm, rng, card: str) -> dict:
                             "p99": float(np.percentile(single_s, 99)) * 1e3},
     }
     for stage, q in stage_ms.items():
-        print(f"[5/5] [{card}] serving latency {stage}: p50 "
+        print(f"[4/6] [{card}] serving latency {stage}: p50 "
               f"{q['p50']:.4f} ms, p99 {q['p99']:.4f} ms", flush=True)
-    print(f"[5/5] [{card}] serving throughput {serving['requests_per_s']:.1f} "
+    print(f"[4/6] [{card}] serving throughput {serving['requests_per_s']:.1f} "
           f"requests/s ({N_REQUESTS} requests, {batches} batches, "
           f"{pass_a_s:.3f}s); serve() single request p50 "
           f"{serving['serve_single_ms']['p50']:.4f} ms, p99 "
@@ -417,7 +470,7 @@ def serving_main_path(gm, rng, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel times
+# phase 6: kernel times (K3)
 # ---------------------------------------------------------------------------
 
 
@@ -472,6 +525,651 @@ def time_gather_margin(gm, rng, dev, B: int, K: int, D: int, live: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (continued): the fused value+gradient kernels K1 (dense) and K2
+# (ELL) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _labels(loss_name: str, n: int, g: torch.Generator, dev):
+    if loss_name == "poisson":
+        return torch.randint(0, 6, (n,), generator=g, device=dev).float()
+    if loss_name == "squared":
+        return torch.randn(n, generator=g, device=dev)
+    return (torch.rand(n, generator=g, device=dev) < 0.4).float()
+
+
+def _row_vectors(variant: int, n: int, g: torch.Generator, dev):
+    """(offsets, weights): both given, both None, or weights with every
+    third row at zero weight."""
+    if variant == 1:
+        return None, None
+    off = torch.randn(n, generator=g, device=dev) * 0.2
+    w = torch.rand(n, generator=g, device=dev) + 0.1
+    if variant == 2:
+        w[::3] = 0.0
+    return off, w
+
+
+def _vg_scales(loss, margins: torch.Tensor, margin_mag: torch.Tensor, y,
+               off, w, feat_abs_t):
+    """Magnitude sums the value and gradient are held to. A reordered f32
+    sum errs relative to the sum of its terms' magnitudes, not to a
+    result that may have cancelled; and each row's margin, itself such a
+    sum (``margin_mag`` = |x_i|.|coef| + |off_i|), passes its error on
+    through l' to the value and through l'' to the gradient. So
+    value: sum_i |w_i| (|l_i| + |l'_i| M_i), gradient:
+    |X|^T (|w| (|l'| + |l''| M)). ``feat_abs_t(v)`` gives |X|^T v."""
+    z = margins if off is None else margins + off
+    mag = margin_mag if off is None else margin_mag + off.abs()
+    l, dz = loss.loss_and_dz(z, y)
+    h = loss.d2z(z, y).abs()
+    wa = torch.ones_like(z) if w is None else w.abs()
+    return ((wa * (l.abs() + dz.abs() * mag)).sum().reshape(()),
+            feat_abs_t(wa * (dz.abs() + h * mag)))
+
+
+def _scaled_err(got, want, scale) -> float:
+    """max |got - want| / scale over the entries with scale > 0."""
+    err = (got.double() - want.double()).abs().reshape(-1)
+    s = scale.double().reshape(-1)
+    keep = s > 0
+    return float((err[keep] / s[keep]).max()) if bool(keep.any()) else 0.0
+
+
+def _check_vg(name, got, again, want, scales, what,
+              rtol: float = VG_RTOL):
+    """Value and gradient against the plain version; ``again`` (a second
+    launch on the same inputs) must equal ``got`` bit for bit. Returns
+    the max abs err and the max err relative to the magnitude sums."""
+    err = max(check_close(got[0].reshape(1), want[0].reshape(1),
+                          f"{name} value {what}", scales[0].reshape(1),
+                          rtol=rtol),
+              check_close(got[1], want[1], f"{name} grad {what}", scales[1],
+                          rtol=rtol))
+    if again is not None and not (torch.equal(got[0], again[0])
+                                  and torch.equal(got[1], again[1])):
+        raise AssertionError(f"{name} {what}: second launch is not bitwise "
+                             f"equal")
+    ratio = max(_scaled_err(got[0], want[0], scales[0]),
+                _scaled_err(got[1], want[1], scales[1]))
+    return err, ratio
+
+
+def check_fused_dense(fvg, losses, g, dev):
+    worst, worst_ratio, cases = 0.0, (0.0, ""), 0
+    for loss in losses:
+        for d in VG_DENSE_DS:
+            for n in (0, 1, VG_TILE - 1, VG_TILE + 1, 8453):
+                for xdt in (torch.float32, torch.bfloat16):
+                    variant = cases % 3
+                    x = torch.randn(n, d, generator=g, device=dev).to(xdt)
+                    y = _labels(loss.name, n, g, dev)
+                    off, w = _row_vectors(variant, n, g, dev)
+                    coef = torch.randn(d, generator=g, device=dev) \
+                        * (0.5 / d ** 0.5)
+                    got = fvg.fused_dense_value_grad(loss, x, y, off, w, coef)
+                    again = fvg.fused_dense_value_grad(loss, x, y, off, w,
+                                                       coef)
+                    want = fvg.fused_dense_value_grad_reference(
+                        loss, x, y, off, w, coef)
+                    xa = x.float().abs()
+                    scales = _vg_scales(loss, x.float() @ coef,
+                                        xa @ coef.abs(), y, off, w,
+                                        lambda v: v @ xa)
+                    what = (f"loss={loss.name} n={n} d={d} x={xdt} "
+                            f"vectors={variant}")
+                    err, ratio = _check_vg("K1", got, again, want, scales,
+                                           what)
+                    worst = max(worst, err)
+                    worst_ratio = max(worst_ratio, (ratio, what))
+                    cases += 1
+    return worst, worst_ratio, cases
+
+
+def _ell_case(n, k, d, vdt, g, dev):
+    """ELL rows with ~25% pad slots (0, 0.0), every fifth row all pads
+    (an empty segment), duplicate ids in half the rows (also across
+    32-slot pieces where K > 32), and ~5% of ids outside [0, D) (which
+    add 0)."""
+    idx = torch.randint(0, max(d, 1), (n, k), generator=g, device=dev)
+    val = torch.randn(n, k, generator=g, device=dev) / max(k, 1) ** 0.5
+    if k:
+        pad = torch.rand(n, k, generator=g, device=dev) < 0.25
+        pad[::5] = True
+        idx[pad], val[pad] = 0, 0.0
+        stray = torch.rand(n, k, generator=g, device=dev) < 0.05
+        idx[stray] = torch.where(
+            torch.rand(n, k, generator=g, device=dev)[stray] < 0.5,
+            torch.tensor(-1, device=dev), torch.tensor(d, device=dev))
+    if k > 1:
+        idx[1::2, 1] = idx[1::2, 0]
+    if k > 32:
+        idx[1::2, k - 1] = idx[1::2, 0]
+    return idx.to(torch.int32).contiguous(), val.to(vdt).contiguous()
+
+
+def _ell_abs_t(idx, val, d):
+    """v -> |X|^T v over ELL rows, ids outside [0, D) dropped."""
+    cols = idx.long()
+    keep = (cols >= 0) & (cols < d)
+    vals = torch.where(keep, val.float().abs(), torch.zeros((), device=cols.device))
+
+    def f(v):
+        out = torch.zeros(d, device=v.device)
+        return out.index_add_(0, cols.clamp(0, max(d - 1, 0)).reshape(-1),
+                              (vals * v[:, None]).reshape(-1))
+    return f
+
+
+def _ell_margins(idx, val, coef):
+    d = coef.shape[0]
+    cols = idx.long()
+    keep = (cols >= 0) & (cols < d)
+    gathered = coef[cols.clamp(0, max(d - 1, 0))] if d else \
+        torch.zeros_like(val.float())
+    return torch.where(keep, val.float() * gathered,
+                       torch.zeros((), device=idx.device)).sum(dim=-1)
+
+
+def check_fused_sparse(fvg, losses, g, dev):
+    from photon_tpu_torch.ops.features import SparseFeatures
+
+    worst, worst_ratio, cases = 0.0, (0.0, ""), 0
+    for loss in losses:
+        for d in (1, 2048, 4096):
+            for n in (0, 1, VG_TILE - 1, VG_TILE + 1, 8453):
+                # K > 32: a row in several 32-slot pieces, re-read for the
+                # gradient
+                for k in (0, 5, 32, 33, 64):
+                    for vdt in (torch.float32, torch.bfloat16):
+                        variant = cases % 3
+                        idx, val = _ell_case(n, k, d, vdt, g, dev)
+                        x = SparseFeatures(idx, val)
+                        y = _labels(loss.name, n, g, dev)
+                        off, w = _row_vectors(variant, n, g, dev)
+                        coef = torch.randn(d, generator=g, device=dev) * 0.5
+                        got = fvg.fused_sparse_value_grad(loss, x, y, off, w,
+                                                          coef)
+                        again = fvg.fused_sparse_value_grad(loss, x, y, off,
+                                                            w, coef)
+                        want = fvg.fused_sparse_value_grad_reference(
+                            loss, x, y, off, w, coef)
+                        scales = _vg_scales(
+                            loss, _ell_margins(idx, val, coef),
+                            _ell_margins(idx, val.abs(), coef.abs()), y, off,
+                            w, _ell_abs_t(idx, val, d))
+                        what = (f"loss={loss.name} n={n} k={k} d={d} "
+                                f"values={vdt} vectors={variant}")
+                        err, ratio = _check_vg("K2", got, again, want,
+                                               scales, what)
+                        worst = max(worst, err)
+                        worst_ratio = max(worst_ratio, (ratio, what))
+                        cases += 1
+    return worst, worst_ratio, cases
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the training main path
+# ---------------------------------------------------------------------------
+
+
+def _counts():
+    from photon_tpu_torch.ops import aggregators as agg
+    from photon_tpu_torch.ops import fused_value_grad as fvg
+
+    return fvg.dense_launches, fvg.sparse_launches, agg.two_pass_cuda
+
+
+def _fit(what: str, fn, kernel: str):
+    """Run one fit, timed on the host clock to a synchronize, and hold its
+    kernel launches to its objective evaluations: every evaluation of an
+    f32 fit is one launch of ``kernel`` and none is two-pass."""
+    c0 = _counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    results = out[1] if isinstance(out[1], dict) else {None: out[1]}
+    evals = sum(r.num_fun_evals for r in results.values())
+    dense, sparse, two_pass = (b - a for a, b in zip(c0, _counts()))
+    want = {"K1": (evals, 0), "K2": (0, evals)}[kernel]
+    if (dense, sparse) != want or two_pass != 0:
+        raise AssertionError(
+            f"{what}: {evals} evaluations but K1 launches {dense}, K2 "
+            f"launches {sparse}, two-pass evaluations {two_pass}")
+    return out, seconds, evals
+
+
+def _against_oracle(what, limits, coef, obj64, batch64, lam, oracle_model,
+                    oracle_res):
+    from photon_tpu_torch.function.objective import Hyper
+
+    f_fit = float(obj64.value(coef.double(), batch64, Hyper.of(lam)))
+    f_opt = float(oracle_res.value)
+    gap = (f_fit - f_opt) / abs(f_opt)
+    want = oracle_model.coefficients.means
+    rel = float(torch.linalg.vector_norm(coef.double() - want)
+                / torch.linalg.vector_norm(want))
+    f_rel, coef_rel = ORACLE_LIMITS[limits]
+    if not (abs(gap) <= f_rel and rel <= coef_rel):
+        raise AssertionError(
+            f"{what}: objective gap {gap:.3e} (bound {f_rel}), coef rel L2 "
+            f"err {rel:.3e} (bound {coef_rel}) against the float64 oracle")
+    return {"objective_rel_gap": gap, "coef_rel_err": rel}
+
+
+def profile_solve(run, warm_s: float) -> dict:
+    """One more warm solve under torch.profiler: device time by kernel and
+    the device's busy share (summed kernel time over the unprofiled warm
+    wall time). Returns {} where the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_kernel: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            us = getattr(evt, "device_time", None)
+            if us is None:
+                us = evt.cuda_time
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + us / 1e3
+    if not by_kernel:
+        return {}
+    busy_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (warm_s * 1e3),
+            "kernels": {name[:60]: ms for name, ms in top}}
+
+
+def train_dense_lbfgs(seed: int, dev, card: str):
+    """bench.py::config_fe_throughput, accelerator arm: 1,000,000 x 1024
+    f32 logistic, L2 1.0, 40 iterations at tolerance 0; cold then warm,
+    then the same with bf16 storage; each checked against a float64
+    solve of its own data. Returns the f32 and bf16 features and the
+    labels, which phase 6 times K1 on."""
+    from photon_tpu_torch.data.dataset import DataBatch
+    from photon_tpu_torch.function.objective import (GLMObjective,
+                                                     L2Regularization)
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.optim.problem import (
+        GLMOptimizationConfiguration, GlmOptimizationProblem,
+        OptimizerConfig)
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    n, d = FE_N, FE_D
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device=dev)
+    w_true = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    y = (torch.rand(n, generator=g, device=dev)
+         < torch.sigmoid(x @ w_true)).float()
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=40, tolerance=0.0),
+        regularization=L2Regularization, regularization_weight=1.0)
+    cfg64 = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=500, tolerance=1e-12),
+        regularization=L2Regularization, regularization_weight=1.0)
+    problem = GlmOptimizationProblem(task, cfg)
+    obj64 = GLMObjective(LogisticLoss)
+    features = {}
+    for storage, fdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        batch = DataBatch.from_numpy(x, y, device=dev, feature_dtype=fdt)
+        run = lambda: problem.run(batch, dim=d, device=dev)
+        _, cold_s, _ = _fit(f"dense L-BFGS {storage} cold", run, "K1")
+        (model, res), warm_s, evals = _fit(f"dense L-BFGS {storage} warm",
+                                           run, "K1")
+        trace = profile_solve(run, warm_s)
+        nbytes = n * d * batch.features.element_size() + n * 4 + d * 8
+        batch64 = DataBatch(batch.features.double(), y.double())
+        oracle_model, oracle_res = GlmOptimizationProblem(
+            task, cfg64).run(batch64, dim=d, regularization_weight=1.0,
+                             device=dev)
+        check = _against_oracle(f"dense L-BFGS {storage}",
+                                f"dense {storage}", model.coefficients.means, obj64, batch64,
+                                1.0, oracle_model, oracle_res)
+        del batch64
+        torch.cuda.empty_cache()
+        bytes_per_s = evals * nbytes / warm_s
+        print(f"[5/6] [{card}] dense L-BFGS {storage} {n}x{d}: warm "
+              f"{warm_s:.4f}s (cold {cold_s:.4f}s), {evals} evaluations = "
+              f"{evals} K1 launches, {res.iterations} iterations, reason "
+              f"{res.reason}; {n * evals / warm_s:.4e} samples/s, "
+              f"{warm_s / evals * 1e3:.4f} ms per evaluation, "
+              f"{bytes_per_s / 1e9:.1f} GB/s "
+              f"({bytes_per_s / HBM_BYTES_PER_S:.3f} of 3.35 TB/s); host syncs {res.host_syncs} per solve; float64 "
+              f"oracle ({oracle_res.iterations} iterations): objective gap "
+              f"{check['objective_rel_gap']:.3e}, coef rel err "
+              f"{check['coef_rel_err']:.3e}", flush=True)
+        if trace:
+            print(f"[5/6] [{card}] dense L-BFGS {storage} profiled warm "
+                  f"solve: device busy {trace['device_busy_ms']:.4f} ms "
+                  f"= {trace['device_busy_share']:.3f} of the unprofiled "
+                  f"warm wall time; top kernels (ms): "
+                  + ", ".join(f"{k} {v:.4f}"
+                              for k, v in trace["kernels"].items()),
+                  flush=True)
+        else:
+            print(f"[5/6] dense L-BFGS {storage}: the profiler recorded no "
+                  f"device time; busy share not measured", flush=True)
+        features[storage] = batch.features
+    return features, y
+
+
+def train_ell_path(seed: int, dev, card: str) -> None:
+    """run_fused_bench's full shape (bench.py:3615-3619): 65,536 ELL rows
+    x 32 slots over D=2048, logistic, through
+    train_generalized_linear_model over lambda 10, 1, 0.1 with warm
+    starts; each lambda checked against a float64 solve."""
+    from photon_tpu_torch.data.dataset import DataBatch
+    from photon_tpu_torch.estimators.model_training import \
+        train_generalized_linear_model
+    from photon_tpu_torch.function.objective import (GLMObjective,
+                                                     L2Regularization)
+    from photon_tpu_torch.ops.features import SparseFeatures
+    from photon_tpu_torch.ops.losses import LogisticLoss
+    from photon_tpu_torch.optim.problem import (
+        GLMOptimizationConfiguration, GlmOptimizationProblem,
+        OptimizerConfig)
+    from photon_tpu_torch.types import TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    n, k, d = ELL_N, ELL_K, ELL_D
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    idx = torch.randint(0, d, (n, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.randn(n, k, generator=g, device=dev) / k ** 0.5
+    w_true = torch.randn(d, generator=g, device=dev)
+    margins = (val * w_true[idx.long()]).sum(dim=-1)
+    y = (torch.rand(n, generator=g, device=dev)
+         < torch.sigmoid(margins)).float()
+    batch = DataBatch.from_numpy(SparseFeatures(idx, val), y, device=dev)
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=100, tolerance=1e-7),
+        regularization=L2Regularization)
+    cfg64 = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(max_iterations=1000, tolerance=1e-12),
+        regularization=L2Regularization)
+    (models, stats), seconds, evals = _fit(
+        "ELL L-BFGS lambda path",
+        lambda: train_generalized_linear_model(
+            task, batch, d, cfg, regularization_weights=ELL_LAMBDAS,
+            device=dev), "K2")
+    batch64 = DataBatch(SparseFeatures(idx, val.double()), y.double())
+    obj64 = GLMObjective(LogisticLoss)
+    for lam in ELL_LAMBDAS:
+        om, ores = GlmOptimizationProblem(task, cfg64).run(
+            batch64, dim=d, regularization_weight=lam, device=dev)
+        check = _against_oracle(f"ELL L-BFGS lambda={lam}", "ELL",
+                                models[lam].coefficients.means, obj64,
+                                batch64, lam, om, ores)
+        r = stats[lam]
+        print(f"[5/6] [{card}] ELL L-BFGS n={n} K={k} D={d} lambda={lam}: "
+              f"{r.num_fun_evals} evaluations, {r.iterations} iterations, "
+              f"reason {r.reason}, host syncs {r.host_syncs}; float64 "
+              f"oracle: objective gap {check['objective_rel_gap']:.3e}, "
+              f"coef rel err {check['coef_rel_err']:.3e}", flush=True)
+    print(f"[5/6] [{card}] ELL lambda path: {seconds:.4f}s, {evals} "
+          f"evaluations = {evals} K2 launches, "
+          f"{n * evals / seconds:.4e} samples/s", flush=True)
+
+
+def _flagship_fixed_effect(n: int, g: torch.Generator, dev):
+    """bench.py:484-516's generator on the card: global features
+    N(0, 1/256), the per-user term (1,000 users x 4 features) folded into
+    the labels."""
+    xg = torch.randn(n, NEWTON_D, generator=g, device=dev) / NEWTON_D ** 0.5
+    users = torch.randint(0, 1_000, (n,), generator=g, device=dev)
+    xu = torch.randn(n, 4, generator=g, device=dev)
+    return xg, users, xu
+
+
+def train_newton(seed: int, dev, card: str) -> None:
+    """The flagship's fixed-effect width (bench.py:503-505, :541-553):
+    100,000 x 256 logistic, NEWTON, L2 1.0, tolerance 1e-5; scored on a
+    20,000-row validation set. Held against scipy's L-BFGS-B in float64
+    numpy on the same row-sum objective."""
+    import numpy as np
+    from scipy.optimize import minimize
+
+    from photon_tpu_torch.data.dataset import DataBatch
+    from photon_tpu_torch.evaluation.evaluators import auc
+    from photon_tpu_torch.function.objective import L2Regularization
+    from photon_tpu_torch.optim.problem import (
+        GLMOptimizationConfiguration, GlmOptimizationProblem,
+        OptimizerConfig)
+    from photon_tpu_torch.types import OptimizerType, TaskType
+
+    task = TaskType.LOGISTIC_REGRESSION
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    w_g = torch.randn(NEWTON_D, generator=g, device=dev)
+    w_u = torch.randn(1_000, 4, generator=g, device=dev) * 1.5
+
+    def make(n):
+        xg, users, xu = _flagship_fixed_effect(n, g, dev)
+        logits = xg @ w_g + (xu * w_u[users]).sum(dim=-1)
+        y = (torch.rand(n, generator=g, device=dev)
+             < torch.sigmoid(logits)).float()
+        return xg, y
+
+    x, y = make(NEWTON_N)
+    xv, yv = make(NEWTON_N_VAL)
+    cfg = GLMOptimizationConfiguration(
+        optimizer=OptimizerConfig(optimizer_type=OptimizerType.NEWTON,
+                                  max_iterations=100, tolerance=1e-5),
+        regularization=L2Regularization, regularization_weight=1.0)
+    batch = DataBatch.from_numpy(x, y, device=dev)
+    problem = GlmOptimizationProblem(task, cfg)
+    (model, res), seconds, evals = _fit(
+        "dense NEWTON",
+        lambda: problem.run(batch, dim=NEWTON_D, device=dev), "K1")
+    coef = model.coefficients.means
+
+    xh = x.double().cpu().numpy()
+    yh = y.double().cpu().numpy()
+
+    def fun(wv):
+        z = xh @ wv
+        f = np.sum(np.logaddexp(0.0, z) - yh * z) + 0.5 * wv @ wv
+        return f, xh.T @ (1.0 / (1.0 + np.exp(-z)) - yh) + wv
+
+    t0 = time.perf_counter()
+    sp_res = minimize(fun, np.zeros(NEWTON_D), jac=True, method="L-BFGS-B",
+                      options={"maxiter": 5000, "gtol": 1e-10,
+                               "ftol": 1e-15})
+    scipy_s = time.perf_counter() - t0
+    w_sp = torch.from_numpy(sp_res.x).to(dev)
+    rel = float(torch.linalg.vector_norm(coef.double() - w_sp)
+                / torch.linalg.vector_norm(w_sp))
+    auc_fit = float(auc(xv @ coef, yv))
+    auc_sp = float(auc(xv.double() @ w_sp, yv.double()))
+    if rel > NEWTON_COEF_REL or abs(auc_fit - auc_sp) > AUC_BAR:
+        raise AssertionError(
+            f"dense NEWTON: coef rel err {rel:.3e} (bound "
+            f"{NEWTON_COEF_REL}), validation AUC {auc_fit:.5f} vs scipy "
+            f"{auc_sp:.5f} (bar {AUC_BAR})")
+    print(f"[5/6] [{card}] dense NEWTON {NEWTON_N}x{NEWTON_D}: {seconds:.4f}s, "
+          f"{res.iterations} iterations, {evals} evaluations = {evals} K1 "
+          f"launches, reason {res.reason}, host syncs {res.host_syncs}; "
+          f"scipy L-BFGS-B float64 ({sp_res.nit} iterations, "
+          f"{scipy_s:.2f}s on the host): coef rel err {rel:.3e}; validation "
+          f"AUC {auc_fit:.5f} vs scipy {auc_sp:.5f}", flush=True)
+
+
+def training_main_path(seed: int, dev, card: str) -> dict:
+    from photon_tpu_torch.ops import aggregators as agg
+    from photon_tpu_torch.ops import fused_value_grad as fvg
+
+    # the main path's launch counts: from zero, just before training
+    fvg.dense_launches = fvg.sparse_launches = 0
+    agg.reset_counts()
+    dense_inputs = train_dense_lbfgs(seed, dev, card)
+    train_ell_path(seed, dev, card)
+    train_newton(seed, dev, card)
+    launches = {"K1": fvg.dense_launches, "K2": fvg.sparse_launches}
+    print(f"[5/6] training main path: K1 launches {launches['K1']}, K2 "
+          f"launches {launches['K2']}; two-pass evaluations on the card "
+          f"{agg.two_pass_cuda}, all of them float64 oracle solves",
+          flush=True)
+    return {"launches": launches, "dense_inputs": dense_inputs}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: K1 / K2 times
+# ---------------------------------------------------------------------------
+
+
+def _time_three(fns, reps, replays, iters) -> dict:
+    out = {}
+    for key, fn in fns.items():
+        out[key] = graph_ms(fn, reps, replays)
+        out["eager_" + key] = time_ms(fn, iters, warm=2)
+    return out
+
+
+def _bound(nbytes: int, flops: int, f_rate: float) -> dict:
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / f_rate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+
+
+def time_fused_dense(fvg, x, y, g, dev) -> dict:
+    """K1, its plain version, and two cuBLAS GEMVs with the logistic loss
+    between them, on ``x`` with offsets and weights."""
+    import torch.nn.functional as Fn
+
+    from photon_tpu_torch.ops.losses import LogisticLoss
+
+    n, d = x.shape
+    off = torch.randn(n, generator=g, device=dev) * 0.2
+    w = torch.rand(n, generator=g, device=dev) + 0.5
+    coef = torch.randn(d, generator=g, device=dev) / d ** 0.5
+    coef_lib = coef.to(x.dtype)
+
+    def kernel():
+        return fvg.fused_dense_value_grad(LogisticLoss, x, y, off, w, coef)
+
+    def plain():
+        return fvg.fused_dense_value_grad_reference(LogisticLoss, x, y, off,
+                                                    w, coef)
+
+    def library():
+        z = torch.mv(x, coef_lib).float() + off
+        r = w * (torch.sigmoid(z) - y)
+        value = (w * (Fn.softplus(z) - y * z)).sum()
+        return value, torch.mv(x.t(), r.to(x.dtype)).float()
+
+    before = fvg.dense_launches
+    want = plain()
+    xa = x.float().abs()
+    scales = _vg_scales(LogisticLoss, x.float() @ coef, xa @ coef.abs(), y,
+                        off, w, lambda v: v @ xa)
+    del xa
+    got, again = kernel(), kernel()
+    err, ratio = _check_vg("K1", got, again, want, scales,
+                           f"timing shape {n}x{d} {x.dtype}")
+    # the yardstick computes the same function (its bf16 GEMV rounds coef
+    # and r to bf16, hence the wider bound there)
+    _check_vg("cuBLAS GEMVs", library(), None, want, scales, f"{n}x{d}",
+              rtol=VG_RTOL if x.dtype == torch.float32 else 1e-2)
+    out = {"n": n, "d": d, "storage": str(x.dtype).replace("torch.", ""),
+           "max_abs_err": err, "max_scaled_err": ratio,
+           **_time_three({"ms": kernel, "plain_ms": plain,
+                          "library_ms": library}, reps=5, replays=4,
+                         iters=10),
+           **_bound(n * d * x.element_size() + n * 12 + d * 8, 4 * n * d,
+                    F32_FLOPS)}
+    fvg.dense_launches = before   # timing launches are not main-path ones
+    return out
+
+
+def time_fused_sparse(fvg, n, k, d, g, dev) -> dict:
+    """K2, its plain version, and F.embedding_bag + index_add_ (the
+    library yardstick) on uniform ELL rows with offsets and weights."""
+    import torch.nn.functional as Fn
+
+    from photon_tpu_torch.ops.features import SparseFeatures
+    from photon_tpu_torch.ops.losses import LogisticLoss
+
+    idx = torch.randint(0, d, (n, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.randn(n, k, generator=g, device=dev) / k ** 0.5
+    x = SparseFeatures(idx, val)
+    y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
+    off = torch.randn(n, generator=g, device=dev) * 0.2
+    w = torch.rand(n, generator=g, device=dev) + 0.5
+    coef = torch.randn(d, generator=g, device=dev) * 0.3
+    idx64 = idx.long()
+    flat = idx64.reshape(-1)
+
+    def kernel():
+        return fvg.fused_sparse_value_grad(LogisticLoss, x, y, off, w, coef)
+
+    def plain():
+        return fvg.fused_sparse_value_grad_reference(LogisticLoss, x, y, off,
+                                                     w, coef)
+
+    def library():
+        z = Fn.embedding_bag(idx64, coef[:, None], per_sample_weights=val,
+                             mode="sum")[:, 0] + off
+        r = w * (torch.sigmoid(z) - y)
+        value = (w * (Fn.softplus(z) - y * z)).sum()
+        grad = torch.zeros(d, device=dev).index_add_(
+            0, flat, (val * r[:, None]).reshape(-1))
+        return value, grad
+
+    before = fvg.sparse_launches
+    want = plain()
+    scales = _vg_scales(LogisticLoss, _ell_margins(idx, val, coef),
+                        _ell_margins(idx, val.abs(), coef.abs()), y, off, w,
+                        _ell_abs_t(idx, val, d))
+    got, again = kernel(), kernel()
+    err, ratio = _check_vg("K2", got, again, want, scales,
+                           f"timing shape n={n} K={k} D={d}")
+    _check_vg("embedding_bag + index_add_", library(), None, want, scales,
+              f"n={n} K={k} D={d}")
+    out = {"n": n, "k": k, "d": d, "max_abs_err": err,
+           "max_scaled_err": ratio,
+           **_time_three({"ms": kernel, "plain_ms": plain,
+                          "library_ms": library},
+                         reps=50 if n < 100_000 else 10, replays=5,
+                         iters=200 if n < 100_000 else 20),
+           **_bound(n * k * 8 + n * 12 + d * 8, 4 * n * k, F32_FLOPS)}
+    fvg.sparse_launches = before
+    return out
+
+
+def _print_vg_times(card, name, r):
+    shape = (f"n={r['n']} D={r['d']} {r['storage']}" if "storage" in r
+             else f"n={r['n']} K={r['k']} D={r['d']}")
+    print(f"[6/6] [{card}] {name} {shape}, ms per call, graph replay "
+          f"(eager): kernel {r['ms']:.5f} ({r['eager_ms']:.5f}), plain "
+          f"{r['plain_ms']:.5f} ({r['eager_plain_ms']:.5f}), library "
+          f"{r['library_ms']:.5f} ({r['eager_library_ms']:.5f}); bound "
+          f"{r['bound_ms']:.6f} ({r['bound_by']}, {r['bytes']} bytes at "
+          f"3.35 TB/s); max abs err {r['max_abs_err']:.3e}, "
+          f"{r['max_scaled_err']:.3e} of the magnitude sum", flush=True)
+
+
+def _record(name, source, replaces, launches, err, main, shapes):
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "eager_ms", "eager_plain_ms", "eager_library_ms")
+    rec = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           **{k: main[k] for k in keys}}
+    if shapes:
+        rec["shapes"] = shapes
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -480,38 +1178,53 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from photon_tpu_torch.ops import cuda_build
+    from photon_tpu_torch.ops import fused_value_grad as fvg
     from photon_tpu_torch.ops import gather_margin as gm
+    from photon_tpu_torch.ops import losses
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
-    print(f"[1/5] device: torch {torch.__version__}, CUDA "
+    print(f"[1/6] device: torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}; nvidia-smi: {card}",
           flush=True)
 
     t0 = time.perf_counter()
-    cuda_build.load_library(gm.KERNEL)
+    cuda_build.load_libraries([gm.KERNEL, fvg.KERNEL])
     build_s = time.perf_counter() - t0
-    print(f"[2/5] built and loaded {gm.KERNEL} ({cuda_build.builds} nvcc "
-          f"run, {cuda_build.loads} load) in {build_s:.2f}s", flush=True)
+    print(f"[2/6] built and loaded {gm.KERNEL}, {fvg.KERNEL} "
+          f"({cuda_build.builds} nvcc runs in parallel, {cuda_build.loads} "
+          f"loads) in {build_s:.2f}s", flush=True)
 
     rng = np.random.default_rng(args.seed)
     check_err, cases = check_gather_margin(gm, rng, dev)
-    print(f"[3/5] gather_margin vs plain version: {cases} cases, max abs "
+    print(f"[3/6] gather_margin vs plain version: {cases} cases, max abs "
           f"err {check_err:.3e} (atol {ATOL}, rtol {RTOL}), second launch "
           f"bitwise equal", flush=True)
-
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    all_losses = (losses.LogisticLoss, losses.SquaredLoss,
+                  losses.PoissonLoss, losses.SmoothedHingeLoss)
+    k1_err, k1_ratio, k1_cases = check_fused_dense(fvg, all_losses, g, dev)
+    k2_err, k2_ratio, k2_cases = check_fused_sparse(fvg, all_losses, g, dev)
+    print(f"[3/6] K1 fused_dense_value_grad vs plain version: {k1_cases} "
+          f"cases, max abs err {k1_err:.3e}, {k1_ratio[0]:.3e} of the "
+          f"magnitude sum ({k1_ratio[1]}); K2 fused_sparse_value_grad: "
+          f"{k2_cases} cases, max abs err {k2_err:.3e}, {k2_ratio[0]:.3e} of "
+          f"the magnitude sum ({k2_ratio[1]}); atol {ATOL}, rtol {VG_RTOL} "
+          f"of the magnitude sums; every second launch bitwise equal",
+          flush=True)
     main_path = serving_main_path(gm, rng, card)
+    training = training_main_path(args.seed, dev, card)
 
     main_shape = time_gather_margin(gm, rng, dev, 64, 256, D_GLOBAL, NNZ,
                                     iters=2000, reps=200, replays=20)
     big_shape = time_gather_margin(gm, rng, dev, 65_536, 256, 4_096, 256,
                                    iters=50, reps=10, replays=5)
     for label, r in (("main-path", main_shape), ("throughput", big_shape)):
-        print(f"[5/5] [{card}] gather_margin {label} shape B={r['B']} "
+        print(f"[6/6] [{card}] gather_margin {label} shape B={r['B']} "
               f"K={r['K']} D={r['D']}, ms per call, graph replay (eager): "
               f"kernel {r['ms']:.5f} ({r['eager_ms']:.5f}), plain "
               f"{r['plain_ms']:.5f} ({r['eager_plain_ms']:.5f}), "
@@ -520,23 +1233,44 @@ def main() -> int:
               f"({r['bound_by']}, {r['bytes']} bytes at 3.35 TB/s)",
               flush=True)
 
-    record = {"kernels": [{
-        "name": gm.KERNEL,
-        "route": "cuda",
-        "source": "photon_tpu_torch/csrc/gather_margin.cu",
-        "replaces": "photon_tpu/ops/pallas_glm.py:369",
-        "launches": main_path["launches"],
-        "max_abs_err": max(check_err, main_shape["max_abs_err"],
-                           big_shape["max_abs_err"]),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "eager_ms": main_shape["eager_ms"],
-        "eager_plain_ms": main_shape["eager_plain_ms"],
-        "eager_library_ms": main_shape["eager_library_ms"],
-    }]}
+    feats, labels = training.pop("dense_inputs")
+    k1_times = [time_fused_dense(fvg, feats[s], labels, g, dev)
+                for s in ("f32", "bf16")]
+    del feats, labels
+    torch.cuda.empty_cache()
+    for n_wide, d_wide in K1_WIDE_SHAPES:
+        x_wide = torch.randn(n_wide, d_wide, generator=g, device=dev)
+        y_wide = (torch.rand(n_wide, generator=g, device=dev) < 0.5).float()
+        k1_times.append(time_fused_dense(fvg, x_wide, y_wide, g, dev))
+        del x_wide, y_wide
+        torch.cuda.empty_cache()
+    k2_times = [time_fused_sparse(fvg, ELL_N, ELL_K, ELL_D, g, dev),
+                time_fused_sparse(fvg, 1_000_000, ELL_K, 4096, g, dev)]
+    for r in k1_times:
+        _print_vg_times(card, "K1 fused_dense_value_grad", r)
+    for r in k2_times:
+        _print_vg_times(card, "K2 fused_sparse_value_grad", r)
+
+    compact = lambda rs: [{k: v for k, v in r.items()
+                           if not k.startswith("eager_")} for r in rs]
+    record = {"kernels": [
+        _record(gm.KERNEL, "photon_tpu_torch/csrc/gather_margin.cu",
+                "photon_tpu/ops/pallas_glm.py:369", main_path["launches"],
+                max(check_err, main_shape["max_abs_err"],
+                    big_shape["max_abs_err"]), main_shape, None),
+        _record("fused_dense_value_grad",
+                "photon_tpu_torch/csrc/fused_value_grad.cu",
+                "photon_tpu/ops/pallas_glm.py:101",
+                training["launches"]["K1"],
+                max([k1_err] + [r["max_abs_err"] for r in k1_times]),
+                k1_times[0], compact(k1_times[1:])),
+        _record("fused_sparse_value_grad",
+                "photon_tpu_torch/csrc/fused_value_grad.cu",
+                "photon_tpu/ops/pallas_glm.py:233",
+                training["launches"]["K2"],
+                max([k2_err] + [r["max_abs_err"] for r in k2_times]),
+                k2_times[0], compact(k2_times[1:])),
+    ]}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s")
     print(f"card: {card}")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from photon_tpu_torch.types import TaskType
@@ -77,3 +78,16 @@ class GeneralizedLinearModel(NamedTuple):
         if not self.task.is_classification:
             raise ValueError(f"{self.task} is not a classification task")
         return (self.compute_mean(x, offsets) >= threshold).to(torch.int32)
+
+
+def glm_from_arrays(means, task, variances=None) -> GeneralizedLinearModel:
+    """A GLM from plain arrays (numpy, lists or tensors; CPU tensors
+    result) — the way one coefficient vector crosses from a JAX fit into
+    the port, e.g. as a warm start for ``GlmOptimizationProblem.run``."""
+    task = task if isinstance(task, TaskType) else TaskType(task)
+    as_t = lambda a: (a.detach().cpu().clone() if isinstance(a, torch.Tensor)
+                      else torch.as_tensor(np.array(a)))
+    return GeneralizedLinearModel(
+        Coefficients(as_t(means),
+                     None if variances is None else as_t(variances)),
+        task)

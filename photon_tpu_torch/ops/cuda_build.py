@@ -7,6 +7,8 @@ so one ``nvcc`` call per source takes seconds. Libraries land in
 source and the flags; a build writes a temp name and renames it into
 place, so concurrent builders never load a half-written file. Nothing
 here runs at import: the first wrapper call (or ``load_library``) builds.
+``load_libraries`` starts one ``nvcc`` per missing library, all at once,
+and loads them when every run has finished.
 
 ``builds`` and ``loads`` count, per process, the ``nvcc`` runs and the
 library loads — the serving engine reports them by phase.
@@ -20,7 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
@@ -58,41 +60,62 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its keyed library exists;
-    returns the library path."""
-    global builds
+def _start(name: str):
+    """(out, tmp, nvcc process) for a library not yet on disk, else
+    (out, None, None)."""
     out = library_path(name)
     if os.path.exists(out):
-        return out
+        return out, None, None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}.{threading.get_ident()}"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC_DIR, name + ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+
+
+def _finish(name: str, out: str, tmp: str, proc) -> None:
+    global builds
+    _, err = proc.communicate()
     if proc.returncode != 0:
         try:
             os.unlink(tmp)
         except OSError:
             pass
         raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stderr}")
+                           f"(exit {proc.returncode}):\n{err}")
     os.replace(tmp, out)
     builds += 1
-    return out
+
+
+def load_libraries(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """The loaded libraries for ``csrc/<name>.cu``, one per name, building
+    those not on disk first: their ``nvcc`` runs start together. Cached
+    per process."""
+    global loads
+    with _lock:
+        todo = [n for n in dict.fromkeys(names) if n not in _libs]
+        started = [(n, *_start(n)) for n in todo]
+        failure = None
+        for name, out, tmp, proc in started:
+            if proc is None:
+                continue
+            try:
+                _finish(name, out, tmp, proc)
+            except RuntimeError as exc:   # wait for the others first
+                failure = failure or exc
+        if failure is not None:
+            raise failure
+        for name, out, _, _ in started:
+            _libs[name] = ctypes.CDLL(out)
+            loads += 1
+        return [_libs[n] for n in names]
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
     needed. Cached per process."""
-    global loads
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(build(name))
-            _libs[name] = lib
-            loads += 1
-    return lib
+    return load_libraries([name])[0]

@@ -6,7 +6,8 @@
   ``jax*`` and no ``photon_tpu`` / ``photon_tpu.*`` key in
   ``sys.modules``, and without having built any kernel.
 * With no CUDA device, the entry points called without a device raise
-  ``RuntimeError`` instead of carrying on on the CPU.
+  ``RuntimeError`` instead of carrying on on the CPU: the serving engine
+  and model, and the training batch, problem and lambda-path trainer.
 """
 
 import ast
@@ -106,6 +107,30 @@ def test_no_quiet_cpu_fallback(tmp_path, monkeypatch):
     # naming the CPU is the one way onto it
     eng = ServingEngine.from_model_dir(d, device="cpu")
     assert eng.model.device == torch.device("cpu")
+
+
+def test_training_entry_points_raise_without_a_card(monkeypatch):
+    from photon_tpu_torch.data.dataset import DataBatch
+    from photon_tpu_torch.estimators.model_training import \
+        train_generalized_linear_model
+    from photon_tpu_torch.optim.problem import GlmOptimizationProblem
+    from photon_tpu_torch.types import TaskType
+
+    x = np.ones((4, 2), np.float32)
+    y = np.asarray([0.0, 1.0, 0.0, 1.0], np.float32)
+    cpu_batch = DataBatch.from_numpy(x, y, device="cpu")
+    task = TaskType.LOGISTIC_REGRESSION
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        DataBatch.from_numpy(x, y)
+    with pytest.raises(RuntimeError):
+        GlmOptimizationProblem(task).run(cpu_batch, dim=2)
+    with pytest.raises(RuntimeError):
+        train_generalized_linear_model(task, cpu_batch, 2)
+    # naming the CPU is the one way onto it
+    model, _ = GlmOptimizationProblem(task).run(cpu_batch, dim=2,
+                                                device="cpu")
+    assert model.coefficients.means.device == torch.device("cpu")
 
 
 def _write_small_model(d):
