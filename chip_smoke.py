@@ -12,9 +12,12 @@ Phases, each printing lines tagged [k/6]:
      (pad slots, duplicate and out-of-range indices, no offsets, empty
      batches); K1 dense and K2 padded-ELL value+gradient (every loss,
      None offsets/weights, zero-weight rows, n = 0, 1 and a tile +- 1,
-     bf16 storage, K1 at D = 1 to 12008 (each form), K2 at
-     D = 1, 2048, 4096 and ELL widths 0, 5, 32, 33, 64 with empty
-     segments, duplicate and out-of-range ids);
+     bf16 storage; K1 at D = 1 to 65,537 (each form and loader, a
+     cluster's rows in flight +- 1, X not on a 16-byte boundary); K2 at
+     D = 1, 2048, 4096 and ELL widths 0, 5, 32, 33, 64, n a warp's run
+     of rows +- 1, a block's +- 1 and the grid's +- 1, with empty
+     segments, duplicate and out-of-range ids, every entry in one
+     column, and Zipf-skewed columns);
   4. the serving main path at the width of the repo's serving benchmark
      model (one fixed-effect shard of 256 features, a per-user random
      effect over 10,000 users with 8 slots, 32 features per request, 10%
@@ -35,10 +38,16 @@ Phases, each printing lines tagged [k/6]:
      held to a float64 solve of the same problem on the card, the NEWTON
      fit to scipy's L-BFGS-B in float64 (coefficients and validation AUC);
   6. times: each kernel at the main-path shapes (and a throughput shape;
-     for K1 also widths 4096 and 10,000, each of its two forms) beside its plain version, its byte bound and one PyTorch library call
+     for K1 also the main shape plus an intercept column and widths 4096,
+     10,000, 10,001 and 65,537; for K2 also Zipf-skewed columns) beside
+     its plain version, its byte bound and one PyTorch library call
      computing the same function (a yardstick only; the port never calls
      it), in CUDA-graph replay (the card's time per call) and as
      back-to-back eager calls (the host's issue rate where that is slower).
+
+``--times-only`` runs phases 1, 2 and the K1/K2 part of 6 alone, on fresh
+data, and prints no ``ok`` line (for timing another tree's kernels with
+this script in one call).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -77,18 +86,44 @@ ATOL = RTOL = 1e-5
 #: sums in no fixed order), 1.7e-7 (K1 cases), 2.2e-7 (timing shapes);
 #: the limit is about 3x the largest
 VG_RTOL = 2e-6
-#: rows per K1/K2 tile (csrc/fused_value_grad.cu kTileRows)
+#: rows per block in the grid sizing of K1/K2 and per K1 tile
+#: (csrc/fused_value_grad.cu kTileRows)
 VG_TILE = 32
 #: K1 widths: each form of csrc/fused_value_grad.cu. Rows in registers
-#: (a multiple of 8, D <= 8192) with 1 warp a row (1024), 2 (2000: the
-#: last columns of each lane's pieces unused), 8 (5000); the tile form with scalar loads (1, 7,
-#: 5001) and 16-byte loads (10000), and past its shared-memory accumulator
-#: (kSmemAccMax = 12,000 floats), in device memory (12001, 12008)
-VG_DENSE_DS = (1, 7, 1024, 2000, 5000, 5001, 10_000, 12_001, 12_008)
-#: K1 timing shapes past the main path's width, each about as many bytes
-#: as its 1M x 1024: rows in registers, 4 warps a row (D = 4096), and the
-#: tile form (D = 10,000 > 8192)
-K1_WIDE_SHAPES = ((250_000, 4096), (100_000, 10_000))
+#: (D <= 8192) with 16-byte pieces, 1 warp a row (1024), 2 (2000: the last
+#: columns of each lane's pieces unused), 8 (5000); with one element a
+#: piece (rows not a whole number of 16-byte vectors: 1, 7, 257, 1025,
+#: 4097, 5001); a cluster of 2 blocks a row (8193, 10,000, 10,001, 12,001,
+#: 12,008), of 4 (16,385) and of 8 (65,536); the tile form (65,537)
+VG_DENSE_DS = (1, 7, 257, 1024, 1025, 2000, 4097, 5000, 5001, 8193,
+               10_000, 10_001, 12_001, 12_008, 16_385, 65_536, 65_537)
+#: K1 row counts: 0, 1, a tile +- 1, and the cluster form's rows in flight
+#: +- 1 (a full grid of 264 blocks is 132, 66 or 33 clusters of 2, 4 or 8
+#: blocks, each taking a row at a time: 8448 = 64 x 132 = 128 x 66 =
+#: 256 x 33), and one more
+VG_DENSE_NS = (0, 1, VG_TILE - 1, VG_TILE + 1, 8447, 8449, 8453)
+#: K2's row assignment (csrc/fused_value_grad.cu kSparseRows, kGridBlocks
+#: and the warps a block, 8 for D <= 2048, else 4): a warp takes runs of 8
+#: rows, a block 8 runs a step (64 rows) where D <= 2048, the grid 264
+#: blocks' worth (16,896 rows, or 8,448 with 4 warps)
+K2_RUN, VG_GRID = 8, 264
+#: K1 timing shapes past the main path's width, (n, D, storage), each
+#: about as many bytes as its 1M x 1024: the main shape plus an intercept
+#: column (D = 1025, rows not a whole number of 16-byte vectors), 4 warps
+#: a row (D = 4096), rows wider than one block (D = 10,000 and 10,001),
+#: and past D = 65,536 (the tile form)
+K1_WIDE_SHAPES = ((1_000_000, 1025, torch.float32),
+                  (1_000_000, 1025, torch.bfloat16),
+                  (250_000, 4096, torch.float32),
+                  (100_000, 10_000, torch.float32),
+                  (100_000, 10_001, torch.float32),
+                  (15_000, 65_537, torch.float32))
+#: K2 timing shapes (n, K, D, column draw): the ELL main path, a
+#: throughput shape, and the same with Zipf(1.1) column ids, the skew of
+#: real sparse features
+K2_SHAPES = ((65_536, 32, 2048, "uniform"), (1_000_000, 32, 4096, "uniform"),
+             (1_000_000, 32, 4096, "zipf"))
+ZIPF_S = 1.1
 #: training main path widths
 FE_N, FE_D = 1_000_000, 1024                      # config_fe_throughput
 ELL_N, ELL_K, ELL_D = 65_536, 32, 2048            # run_fused_bench
@@ -596,34 +631,52 @@ def _check_vg(name, got, again, want, scales, what,
     return err, ratio
 
 
+def _dense_case(fvg, loss, x, g, dev, variant, what):
+    """One K1 case on features ``x``: labels, vectors and coef drawn here;
+    the kernel twice (bitwise) against the plain version."""
+    n, d = x.shape
+    y = _labels(loss.name, n, g, dev)
+    off, w = _row_vectors(variant, n, g, dev)
+    coef = torch.randn(d, generator=g, device=dev) * (0.5 / d ** 0.5)
+    got = fvg.fused_dense_value_grad(loss, x, y, off, w, coef)
+    again = fvg.fused_dense_value_grad(loss, x, y, off, w, coef)
+    want = fvg.fused_dense_value_grad_reference(loss, x, y, off, w, coef)
+    xa = x.float().abs()
+    scales = _vg_scales(loss, x.float() @ coef, xa @ coef.abs(), y, off, w,
+                        lambda v: v @ xa)
+    return _check_vg("K1", got, again, want, scales,
+                     f"loss={loss.name} {what} x={x.dtype} "
+                     f"vectors={variant}")
+
+
 def check_fused_dense(fvg, losses, g, dev):
     worst, worst_ratio, cases = 0.0, (0.0, ""), 0
+
+    def run(loss, x, what):
+        nonlocal worst, worst_ratio, cases
+        err, ratio = _dense_case(fvg, loss, x, g, dev, cases % 3, what)
+        worst = max(worst, err)
+        worst_ratio = max(worst_ratio, (ratio, f"loss={loss.name} {what}"))
+        cases += 1
+
     for loss in losses:
         for d in VG_DENSE_DS:
-            for n in (0, 1, VG_TILE - 1, VG_TILE + 1, 8453):
+            for n in VG_DENSE_NS:
                 for xdt in (torch.float32, torch.bfloat16):
-                    variant = cases % 3
                     x = torch.randn(n, d, generator=g, device=dev).to(xdt)
-                    y = _labels(loss.name, n, g, dev)
-                    off, w = _row_vectors(variant, n, g, dev)
-                    coef = torch.randn(d, generator=g, device=dev) \
-                        * (0.5 / d ** 0.5)
-                    got = fvg.fused_dense_value_grad(loss, x, y, off, w, coef)
-                    again = fvg.fused_dense_value_grad(loss, x, y, off, w,
-                                                       coef)
-                    want = fvg.fused_dense_value_grad_reference(
-                        loss, x, y, off, w, coef)
-                    xa = x.float().abs()
-                    scales = _vg_scales(loss, x.float() @ coef,
-                                        xa @ coef.abs(), y, off, w,
-                                        lambda v: v @ xa)
-                    what = (f"loss={loss.name} n={n} d={d} x={xdt} "
-                            f"vectors={variant}")
-                    err, ratio = _check_vg("K1", got, again, want, scales,
-                                           what)
-                    worst = max(worst, err)
-                    worst_ratio = max(worst_ratio, (ratio, what))
-                    cases += 1
+                    run(loss, x, f"n={n} d={d}")
+        # X whose base is not on a 16-byte boundary: rows of an intercept
+        # width (big[1:]) and rows of an aligned width shifted by one
+        # element (both take the element-a-lane pieces)
+        for n in (1, VG_TILE + 1, 8449):
+            for xdt in (torch.float32, torch.bfloat16):
+                big = torch.randn(n + 1, 1025, generator=g,
+                                  device=dev).to(xdt)
+                run(loss, big[1:], f"n={n} d=1025 base+1 row")
+                flat = torch.randn(n * 1024 + 1, generator=g,
+                                   device=dev).to(xdt)
+                run(loss, flat[1:].view(n, 1024), f"n={n} d=1024 base+1 "
+                    f"element")
     return worst, worst_ratio, cases
 
 
@@ -676,36 +729,60 @@ def check_fused_sparse(fvg, losses, g, dev):
     from photon_tpu_torch.ops.features import SparseFeatures
 
     worst, worst_ratio, cases = 0.0, (0.0, ""), 0
-    for loss in losses:
-        for d in (1, 2048, 4096):
-            for n in (0, 1, VG_TILE - 1, VG_TILE + 1, 8453):
-                # K > 32: a row in several 32-slot pieces, re-read for the
-                # gradient
-                for k in (0, 5, 32, 33, 64):
-                    for vdt in (torch.float32, torch.bfloat16):
-                        variant = cases % 3
-                        idx, val = _ell_case(n, k, d, vdt, g, dev)
-                        x = SparseFeatures(idx, val)
-                        y = _labels(loss.name, n, g, dev)
-                        off, w = _row_vectors(variant, n, g, dev)
-                        coef = torch.randn(d, generator=g, device=dev) * 0.5
-                        got = fvg.fused_sparse_value_grad(loss, x, y, off, w,
-                                                          coef)
-                        again = fvg.fused_sparse_value_grad(loss, x, y, off,
-                                                            w, coef)
-                        want = fvg.fused_sparse_value_grad_reference(
-                            loss, x, y, off, w, coef)
-                        scales = _vg_scales(
-                            loss, _ell_margins(idx, val, coef),
+
+    def run(loss, idx, val, d, what):
+        nonlocal worst, worst_ratio, cases
+        variant = cases % 3
+        n = idx.shape[0]
+        x = SparseFeatures(idx, val)
+        y = _labels(loss.name, n, g, dev)
+        off, w = _row_vectors(variant, n, g, dev)
+        coef = torch.randn(d, generator=g, device=dev) * 0.5
+        got = fvg.fused_sparse_value_grad(loss, x, y, off, w, coef)
+        again = fvg.fused_sparse_value_grad(loss, x, y, off, w, coef)
+        want = fvg.fused_sparse_value_grad_reference(loss, x, y, off, w,
+                                                     coef)
+        scales = _vg_scales(loss, _ell_margins(idx, val, coef),
                             _ell_margins(idx, val.abs(), coef.abs()), y, off,
                             w, _ell_abs_t(idx, val, d))
-                        what = (f"loss={loss.name} n={n} k={k} d={d} "
-                                f"values={vdt} vectors={variant}")
-                        err, ratio = _check_vg("K2", got, again, want,
-                                               scales, what)
-                        worst = max(worst, err)
-                        worst_ratio = max(worst_ratio, (ratio, what))
-                        cases += 1
+        what = (f"loss={loss.name} {what} d={d} values={val.dtype} "
+                f"vectors={variant}")
+        err, ratio = _check_vg("K2", got, again, want, scales, what)
+        worst = max(worst, err)
+        worst_ratio = max(worst_ratio, (ratio, what))
+        cases += 1
+
+    vdts = (torch.float32, torch.bfloat16)
+    for loss in losses:
+        for d in (1, 2048, 4096):
+            warps = 8 if d <= 2048 else 4
+            # 0, 1, a tile +- 1, a warp's run +- 1, a block's step +- 1,
+            # and at D = 2048 and 4096 the grid's step +- 1 (at D = 1 all
+            # the terms of so many rows go into one column, where the plain
+            # version's own f32 index_add_ rounding was read past the limit
+            # at 676K terms)
+            block = warps * K2_RUN
+            ns = [0, 1, VG_TILE - 1, VG_TILE + 1, K2_RUN - 1, K2_RUN + 1,
+                  block - 1, block + 1, 8453]
+            if d > 1:
+                ns += [VG_GRID * block - 1, VG_GRID * block + 1]
+            # K > 32: a row in several 32-slot pieces
+            for k in (0, 5, 32, 33, 64):
+                for n in dict.fromkeys(ns):
+                    for vdt in vdts:
+                        idx, val = _ell_case(n, k, d, vdt, g, dev)
+                        run(loss, idx, val, d, f"n={n} k={k}")
+        for k in (5, 32, 33):
+            # two block steps + 1 and the grid's step + 1 (4 warps a block)
+            for n in (2 * 4 * K2_RUN + 1, VG_GRID * 4 * K2_RUN + 1):
+                for vdt in vdts:
+                    # every entry of every row in one column
+                    idx, val = _ell_case(n, k, 4096, vdt, g, dev)
+                    idx = torch.full_like(idx, 1234)
+                    run(loss, idx, val, 4096, f"n={n} k={k} one column")
+                    # Zipf-skewed columns
+                    idx = zipf_columns(n, k, 4096, g, dev)
+                    run(loss, idx, val, 4096, f"n={n} k={k} zipf")
     return worst, worst_ratio, cases
 
 
@@ -1091,16 +1168,32 @@ def time_fused_dense(fvg, x, y, g, dev) -> dict:
     return out
 
 
-def time_fused_sparse(fvg, n, k, d, g, dev) -> dict:
+def zipf_columns(n: int, k: int, d: int, g: torch.Generator, dev):
+    """[n, k] int32 column ids drawn Zipf(ZIPF_S) over D columns, the hot
+    ranks spread over the ids by a seeded permutation."""
+    ranks = torch.arange(1, d + 1, device=dev, dtype=torch.float64)
+    cdf = torch.cumsum(ranks ** -ZIPF_S, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(n * k, generator=g, device=dev, dtype=torch.float64)
+    rank = torch.searchsorted(cdf, u).clamp_(max=d - 1)
+    perm = torch.randperm(d, generator=g, device=dev)
+    return perm[rank].reshape(n, k).to(torch.int32).contiguous()
+
+
+def time_fused_sparse(fvg, n, k, d, draw, g, dev) -> dict:
     """K2, its plain version, and F.embedding_bag + index_add_ (the
-    library yardstick) on uniform ELL rows with offsets and weights."""
+    library yardstick) on ELL rows with offsets and weights, column ids
+    uniform or Zipf-skewed (``draw``)."""
     import torch.nn.functional as Fn
 
     from photon_tpu_torch.ops.features import SparseFeatures
     from photon_tpu_torch.ops.losses import LogisticLoss
 
-    idx = torch.randint(0, d, (n, k), generator=g, device=dev,
-                        dtype=torch.int32)
+    if draw == "zipf":
+        idx = zipf_columns(n, k, d, g, dev)
+    else:
+        idx = torch.randint(0, d, (n, k), generator=g, device=dev,
+                            dtype=torch.int32)
     val = torch.randn(n, k, generator=g, device=dev) / k ** 0.5
     x = SparseFeatures(idx, val)
     y = (torch.rand(n, generator=g, device=dev) < 0.5).float()
@@ -1133,10 +1226,10 @@ def time_fused_sparse(fvg, n, k, d, g, dev) -> dict:
                         _ell_abs_t(idx, val, d))
     got, again = kernel(), kernel()
     err, ratio = _check_vg("K2", got, again, want, scales,
-                           f"timing shape n={n} K={k} D={d}")
+                           f"timing shape n={n} K={k} D={d} {draw}")
     _check_vg("embedding_bag + index_add_", library(), None, want, scales,
-              f"n={n} K={k} D={d}")
-    out = {"n": n, "k": k, "d": d, "max_abs_err": err,
+              f"n={n} K={k} D={d} {draw}")
+    out = {"n": n, "k": k, "d": d, "columns": draw, "max_abs_err": err,
            "max_scaled_err": ratio,
            **_time_three({"ms": kernel, "plain_ms": plain,
                           "library_ms": library},
@@ -1147,9 +1240,48 @@ def time_fused_sparse(fvg, n, k, d, g, dev) -> dict:
     return out
 
 
+def time_value_grad(fvg, dense_inputs, g, dev, card):
+    """Phase 6 for K1 and K2: every timing shape, printed; returns the two
+    lists of results, the main shapes first."""
+    feats, labels = dense_inputs
+    k1_times = [time_fused_dense(fvg, feats[s], labels, g, dev)
+                for s in ("f32", "bf16")]
+    del feats, labels, dense_inputs
+    torch.cuda.empty_cache()
+    for n_wide, d_wide, xdt in K1_WIDE_SHAPES:
+        x_wide = torch.randn(n_wide, d_wide, generator=g, device=dev).to(xdt)
+        y_wide = (torch.rand(n_wide, generator=g, device=dev) < 0.5).float()
+        k1_times.append(time_fused_dense(fvg, x_wide, y_wide, g, dev))
+        del x_wide, y_wide
+        torch.cuda.empty_cache()
+    k2_times = [time_fused_sparse(fvg, n, k, d, draw, g, dev)
+                for n, k, d, draw in K2_SHAPES]
+    for r in k1_times:
+        _print_vg_times(card, "K1 fused_dense_value_grad", r)
+    for r in k2_times:
+        _print_vg_times(card, "K2 fused_sparse_value_grad", r)
+    return k1_times, k2_times
+
+
+def times_only(fvg, seed: int, dev, card: str) -> int:
+    """``--times-only``: phase 6 for K1 and K2 alone, on fresh data of the
+    training main path's dense shape. Prints the times and a JSON line
+    ``{"times": ...}``, and no ``ok`` line: it checks no main path."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(FE_N, FE_D, generator=g, device=dev)
+    y = (torch.rand(FE_N, generator=g, device=dev) < 0.5).float()
+    feats = {"f32": x, "bf16": x.to(torch.bfloat16)}
+    del x
+    k1, k2 = time_value_grad(fvg, (feats, y), g, dev, card)
+    compact = lambda rs: [{k: v for k, v in r.items()
+                           if not k.startswith("eager_")} for r in rs]
+    print(json.dumps({"times": {"K1": compact(k1), "K2": compact(k2)}}))
+    return 0
+
+
 def _print_vg_times(card, name, r):
     shape = (f"n={r['n']} D={r['d']} {r['storage']}" if "storage" in r
-             else f"n={r['n']} K={r['k']} D={r['d']}")
+             else f"n={r['n']} K={r['k']} D={r['d']} {r['columns']}")
     print(f"[6/6] [{card}] {name} {shape}, ms per call, graph replay "
           f"(eager): kernel {r['ms']:.5f} ({r['eager_ms']:.5f}), plain "
           f"{r['plain_ms']:.5f} ({r['eager_plain_ms']:.5f}), library "
@@ -1173,6 +1305,9 @@ def _record(name, source, replaces, launches, err, main, shapes):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--times-only", action="store_true",
+                    help="build the kernels and time K1 and K2 alone "
+                         "(phases 1, 2 and 6); no ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1193,11 +1328,14 @@ def main() -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    cuda_build.load_libraries([gm.KERNEL, fvg.KERNEL])
+    libs = [gm.KERNEL, fvg.KERNEL]
+    cuda_build.load_libraries(libs)
     build_s = time.perf_counter() - t0
-    print(f"[2/6] built and loaded {gm.KERNEL}, {fvg.KERNEL} "
+    print(f"[2/6] built and loaded {', '.join(libs)} "
           f"({cuda_build.builds} nvcc runs in parallel, {cuda_build.loads} "
           f"loads) in {build_s:.2f}s", flush=True)
+    if args.times_only:
+        return times_only(fvg, args.seed, dev, card)
 
     rng = np.random.default_rng(args.seed)
     check_err, cases = check_gather_margin(gm, rng, dev)
@@ -1233,23 +1371,8 @@ def main() -> int:
               f"({r['bound_by']}, {r['bytes']} bytes at 3.35 TB/s)",
               flush=True)
 
-    feats, labels = training.pop("dense_inputs")
-    k1_times = [time_fused_dense(fvg, feats[s], labels, g, dev)
-                for s in ("f32", "bf16")]
-    del feats, labels
-    torch.cuda.empty_cache()
-    for n_wide, d_wide in K1_WIDE_SHAPES:
-        x_wide = torch.randn(n_wide, d_wide, generator=g, device=dev)
-        y_wide = (torch.rand(n_wide, generator=g, device=dev) < 0.5).float()
-        k1_times.append(time_fused_dense(fvg, x_wide, y_wide, g, dev))
-        del x_wide, y_wide
-        torch.cuda.empty_cache()
-    k2_times = [time_fused_sparse(fvg, ELL_N, ELL_K, ELL_D, g, dev),
-                time_fused_sparse(fvg, 1_000_000, ELL_K, 4096, g, dev)]
-    for r in k1_times:
-        _print_vg_times(card, "K1 fused_dense_value_grad", r)
-    for r in k2_times:
-        _print_vg_times(card, "K2 fused_sparse_value_grad", r)
+    k1_times, k2_times = time_value_grad(fvg, training.pop("dense_inputs"),
+                                         g, dev, card)
 
     compact = lambda rs: [{k: v for k, v in r.items()
                            if not k.startswith("eager_")} for r in rs]

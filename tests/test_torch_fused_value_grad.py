@@ -164,6 +164,25 @@ def test_dense_bf16_storage():
         JL.LogisticLoss, x16, _j(y), None, None, _j(coef)))
 
 
+@pytest.mark.parametrize("xdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d", [257, 1025, 8193])
+def test_dense_intercept_and_wide_widths(d, xdtype):
+    """Widths the kernel takes one element a lane (an intercept column
+    added to 256 or 1024 features) or a cluster of blocks a row (past
+    8192): the plain version against Pallas, f32 and bf16 storage."""
+    x, y, off, w, coef = _dense_problem(70, d, seed=d)
+    coef /= np.sqrt(d)
+    if xdtype == "bf16":
+        xj = jnp.asarray(x, jnp.bfloat16)
+        x = np.asarray(xj.astype(jnp.float32))   # the exact bf16 values
+        tdtype = torch.bfloat16
+    else:
+        xj, tdtype = _j(x), torch.float32
+    got = _port_dense(PL.LogisticLoss, x, y, off, w, coef, xdtype=tdtype)
+    _close(got, pallas_glm.fused_dense_value_grad(
+        JL.LogisticLoss, xj, _j(y), _j(off), _j(w), _j(coef), tile_n=64))
+
+
 # ---------------------------------------------------------------------------
 # K2, padded-ELL rows
 # ---------------------------------------------------------------------------
@@ -242,6 +261,28 @@ def test_sparse_bf16_values():
                             vdtype=jnp.bfloat16)[0])
 
 
+@pytest.mark.parametrize("n", [7, 9, 63, 65])
+@pytest.mark.parametrize("draw", ["zipf", "one_column"])
+def test_sparse_skewed_columns(draw, n):
+    """Column ids as real sparse features draw them (Zipf(1.1): a few hot
+    columns take most entries) and all in one column, at n around a warp's
+    run of rows in the kernel (8) and the rows one block takes a step
+    (8 warps x 8 rows = 64)."""
+    idx, val, y, off, w, coef = _sparse_problem(n, 32, 1024, seed=n)
+    if draw == "zipf":
+        rng = np.random.default_rng(n)
+        p = np.arange(1, 1025, dtype=np.float64) ** -1.1
+        idx = rng.permutation(1024)[rng.choice(1024, size=idx.shape,
+                                               p=p / p.sum())]
+        idx = idx.astype(np.int32)
+    else:
+        idx[:] = 517
+    got = _port_sparse(PL.LogisticLoss, idx, val, y, off, w, coef)
+    want, x = _jax_sparse(JL.LogisticLoss, idx, val, y, off, w, coef)
+    _close(got, want)
+    _close(got, _jax_two_pass(JL.LogisticLoss, x, y, off, w, coef))
+
+
 def test_sparse_out_of_range_index_adds_nothing():
     """An index outside [0, D) matches no one-hot column in the Pallas
     kernel: it adds 0 to the margin and to the gradient."""
@@ -295,12 +336,18 @@ def test_wrappers_reject_mismatched_shapes(bad):
 
 
 def test_kernel_source_has_no_float_atomics():
-    """Bitwise reruns need every reduction in a fixed order: the CUDA
-    source of K1/K2 uses no atomic operation at all."""
+    """Bitwise reruns need every reduction in a fixed order: no CUDA
+    source of the port (K1/K2 and every other ``.cu`` / ``.cuh`` under
+    ``csrc/``) uses an atomic operation or an atomic bulk reduction."""
     from photon_tpu_torch.ops import cuda_build
 
-    src = open(os.path.join(cuda_build.CSRC_DIR,
-                            fvg.KERNEL + ".cu")).read()
-    assert re.search(r"\batomic\w*\s*\(", src) is None
+    sources = sorted(f for f in os.listdir(cuda_build.CSRC_DIR)
+                     if f.endswith((".cu", ".cuh")))
+    assert fvg.KERNEL + ".cu" in sources
+    for name in sources:
+        src = open(os.path.join(cuda_build.CSRC_DIR, name)).read()
+        assert re.search(r"\batomic\w*\s*\(", src) is None, name
+        assert re.search(r"\bred\.|cp\.reduce", src) is None, name
     assert cuda_build.library_path(fvg.KERNEL).startswith(
         cuda_build.BUILD_DIR)
+
