@@ -10,7 +10,11 @@ Phases, each printing lines tagged [k/6]:
   3. each kernel against its plain PyTorch version on the card, over edge
      shapes, plus a bitwise check of a second launch: K3 gather+margin
      (pad slots, duplicate and out-of-range indices, no offsets, empty
-     batches); K1 dense and K2 padded-ELL value+gradient (every loss,
+     batches); K3's fused GLMix form (B = 1, each bucket of 1..64 and +- 1
+     of an 8-row block; 0, 1 and 3 random coordinates of 1, 8, 32 and 33
+     slots and fixed-only; pad slots, unknown-entity rows, entity rows and
+     slot ids out of range, duplicate slot ids); K1 dense and K2
+     padded-ELL value+gradient (every loss,
      None offsets/weights, zero-weight rows, n = 0, 1 and a tile +- 1,
      bf16 storage; K1 at D = 1 to 65,537 (each form and loader, a
      cluster's rows in flight +- 1, X not on a 16-byte boundary); K2 at
@@ -24,8 +28,11 @@ Phases, each printing lines tagged [k/6]:
      unknown users, buckets 1..64): write the model dir, load it with
      ``ServingEngine.from_model_dir`` on the card, ``warmup()``, then
      2,000 requests through submit/pump/drain, 100 single-request
-     ``serve()`` calls and a forced-shed pass, every score checked
-     against a float64 numpy oracle built from the saved arrays; per-stage
+     ``serve()`` calls, a forced-shed pass and 60 ladder-top batches
+     under ``torch.profiler``, every score checked against a float64
+     numpy oracle built from the saved arrays; exactly one kernel launch
+     per batch, and in the profiled window one kernel, one copy in and
+     one copy out per batch and nothing else on the device; per-stage
      latency and throughput;
   5. the training main path, through ``GlmOptimizationProblem.run`` and
      ``train_generalized_linear_model`` on the card: dense L-BFGS at
@@ -44,10 +51,17 @@ Phases, each printing lines tagged [k/6]:
      computing the same function (a yardstick only; the port never calls
      it), in CUDA-graph replay (the card's time per call) and as
      back-to-back eager calls (the host's issue rate where that is slower).
+     For the fused margin, which no one library call computes:
+     ``embedding_bag`` for its fixed term, the parent's chain of K3 and
+     torch ops, the launch floor (an empty kernel in graph replay, and one
+     C-call round trip: copy in, empty kernel, copy out, wait), and
+     ``scorer.dispatch`` through to the host result, p50/p99 over 2,000
+     calls a mode.
 
-``--times-only`` runs phases 1, 2 and the K1/K2 part of 6 alone, on fresh
-data, and prints no ``ok`` line (for timing another tree's kernels with
-this script in one call).
+``--times-only`` runs phases 1, 2 and 6 alone, on fresh data, and
+prints no ``ok`` line: for timing another tree's kernels and scorer with
+this script in one call (the fused kernel's times only where that tree
+has it).
 
 Any failure raises and exits non-zero. The line before the last is the
 kernels' JSON record; the last line is ``{"ok": true, "device": ...}``.
@@ -59,6 +73,7 @@ Imports nothing of JAX or photon_tpu.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -145,6 +160,10 @@ NEWTON_COEF_REL, AUC_BAR = 1e-6, 0.005
 D_GLOBAL, N_USERS, K_USER, NNZ = 256, 10_000, 8, 32
 N_REQUESTS, N_SINGLE, N_SHED = 2_000, 100, 256
 MAX_BATCH = 64
+#: ladder-top batches served under torch.profiler in phase 4
+PROFILED_BATCHES = 60
+#: the launch floor's library (timing only; csrc/launch_floor.cu)
+FLOOR_KERNEL = "launch_floor"
 
 
 def card_line() -> str:
@@ -280,6 +299,102 @@ def check_gather_margin(gm, rng, dev):
     if empty.shape != (0,):
         raise AssertionError(f"gather_margin n=0 gave shape {empty.shape}")
     return worst, cases + 1
+
+
+def fill_margin(rng, state, B: int, with_random: bool, live: int = None,
+                stray: bool = True) -> None:
+    """Seeded GLMix inputs packed into ``state``'s staging buffer: the
+    fixed slots as ``margin_case`` draws them (or ``live`` real slots a
+    row, the rest pads), and per coordinate ~20% unknown-entity rows (the
+    zero row E), ~25% pad slots, duplicate slot ids in half the rows and,
+    where ``stray``, ~5% entity rows and slot ids out of range."""
+    state.reserve(B)
+    idx, val, off, coords = state.arrays(state.host_np, B, with_random)
+    D, K = state.theta.shape[0], state.k_fixed
+    if live is None:
+        i, v, o, _ = margin_case(rng, B, K, D, "cpu", stray=stray)
+        idx[:], val[:], off[:] = i.numpy(), v.numpy(), o.numpy()
+    else:
+        idx[:], val[:] = 0, 0.0
+        idx[:, :live] = rng.random((B, D)).argsort(axis=1)[:, :live]
+        val[:, :live] = rng.normal(size=(B, live))
+        off[:] = rng.normal(size=B)
+    for (ent, sidx, sval), table in zip(coords, state.tables):
+        rows, k = table.shape
+        ent[:] = rng.integers(0, rows - 1, size=B)
+        ent[rng.random(B) < 0.2] = rows - 1
+        sidx[:] = rng.integers(0, k, size=(B, k))
+        sval[:] = rng.normal(size=(B, k))
+        pad = rng.random((B, k)) < 0.25
+        sidx[pad], sval[pad] = 0, 0.0
+        if k > 1:
+            dup = rng.random(B) < 0.5
+            sidx[dup, -1] = sidx[dup, 0]
+        if stray:
+            out = rng.random(B) < 0.05
+            ent[out] = rng.choice([-1, -5, rows, rows + 8, 2**31 - 1],
+                                  size=int(out.sum()))
+            out = rng.random((B, k)) < 0.05
+            sidx[out] = rng.choice([-1, k, k + 3], size=int(out.sum()))
+
+
+def margin_reference(gm, state, buf, B: int, with_random: bool,
+                     magnitude: bool = False) -> torch.Tensor:
+    """The plain version, on the card, on one staged batch in ``buf``
+    (the host buffer as packed, moved to the card, or the device buffer
+    after a launch); with ``magnitude`` the sum of the terms' magnitudes,
+    the scale a reordered f32 sum errs relative to."""
+    idx, val, off, coords = state.arrays(buf.to(state.device), B,
+                                         with_random)
+    f = torch.abs if magnitude else (lambda t: t)
+    return gm.glmix_margin_reference(
+        idx, f(val), f(off), f(state.theta),
+        [f(t) for t in state.tables[:len(coords)]], [c[0] for c in coords],
+        [c[1] for c in coords], [f(c[2]) for c in coords])
+
+
+#: phase-3 shapes of the fused margin: B = 1, each bucket of the ladder
+#: 1..64 and +- 1 of an 8-row block; coordinate slot widths (0, 1 and 3
+#: coordinates); fixed slot widths
+GLMIX_BS = (1, 2, 4, 7, 8, 9, 15, 16, 17, 32, 63, 64, 65)
+GLMIX_COORDS = ((), (1,), (8,), (32,), (33,), (1, 8, 33), (33, 32, 8))
+GLMIX_KF = (0, 7, 256)
+
+
+def check_glmix_margin(gm, rng, dev):
+    """The fused kernel against its plain version on the card, each case
+    launched twice (bitwise equal), in full and fixed-only mode. The
+    plain version reads the batch as packed on the host, so the whole
+    wrapper (the copy in, the launch, the copy out) is held to it; the
+    words the copy left in the device buffer must equal the packed ones."""
+    worst, cases = 0.0, 0
+    theta = torch.as_tensor(rng.normal(size=D_GLOBAL) * 0.5,
+                            dtype=torch.float32, device=dev)
+    for ci, widths in enumerate(GLMIX_COORDS):
+        tables = [torch.as_tensor(
+            np.concatenate([rng.normal(size=(50, k)), np.zeros((1, k))]),
+            dtype=torch.float32, device=dev) for k in widths]
+        state = gm.MarginState(theta, tables, GLMIX_KF[ci % len(GLMIX_KF)])
+        for B in GLMIX_BS:
+            for full in dict.fromkeys((bool(widths), False)):
+                fill_margin(rng, state, B, full)
+                got = gm.glmix_margin(state, B, full)
+                again = gm.glmix_margin(state, B, full)
+                want = margin_reference(gm, state, state.host, B, full)
+                mag = margin_reference(gm, state, state.host, B, full, True)
+                what = (f"glmix_margin B={B} K_f={state.k_fixed} slot "
+                        f"widths {widths if full else ()}")
+                worst = max(worst, check_close(got, want, what, mag))
+                words = state.launch_args(B, full)[0] // 4
+                if not torch.equal(state.dev[:words].cpu(),
+                                   state.host[:words]):
+                    raise AssertionError(f"{what}: the staged copy differs "
+                                         f"from the packed words")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: second launch is not "
+                                         f"bitwise equal")
+                cases += 1
+    return worst, cases
 
 
 # ---------------------------------------------------------------------------
@@ -460,25 +575,37 @@ def serving_main_path(gm, rng, card: str) -> dict:
         raise AssertionError("forced-shed pass produced no "
                              "slo_shed_random_effects response")
 
+    # pass D: submit/pump at the ladder top under torch.profiler, every
+    # batch one kernel, one copy in and one copy out on the card
+    prof_reqs = make_requests(rng, "p", PROFILED_BATCHES * MAX_BATCH)
+    window = profile_serving(engine, gm, prof_reqs)
+    seen_d = check_responses(prof_reqs, window.pop("responses"), theta,
+                             coef, proj)
+
     torch.cuda.synchronize()
     stats = engine.stats()
     launches = gm.launches
     all_batches = batch_count(stats)
     traffic_launches = launches - after_warmup
-    if traffic_launches < all_batches:
-        raise AssertionError(f"gather_margin launched {traffic_launches} "
+    if traffic_launches != all_batches:
+        raise AssertionError(f"glmix_margin launched {traffic_launches} "
                              f"times for {all_batches} batches")
     if stats["kernel_builds"]["steady"] != 0:
         raise AssertionError(f"kernel library built/loaded after warmup: "
                              f"{stats['kernel_builds']}")
+    seen = (seen_a, seen_b, seen_c, seen_d)
     print(f"[4/6] served {len(out)} + {len(single_out)} + {len(shed_out)} "
-          f"requests in {all_batches} batches; oracle rtol/atol "
-          f"{RTOL}/{ATOL}: max abs err "
-          f"{max(seen_a['max_abs_err'], seen_b['max_abs_err'], seen_c['max_abs_err']):.3e}; "
-          f"unknown users {seen_a['unknown'] + seen_b['unknown'] + seen_c['unknown']}, "
-          f"shed {seen_c['shed']}; gather_margin launches {launches} "
-          f"({traffic_launches} for traffic); kernel builds "
-          f"{stats['kernel_builds']}", flush=True)
+          f"+ {len(prof_reqs)} requests in {all_batches} batches; oracle "
+          f"rtol/atol {RTOL}/{ATOL}: max abs err "
+          f"{max(x['max_abs_err'] for x in seen):.3e}; unknown users "
+          f"{sum(x['unknown'] for x in seen)}, shed {seen_c['shed']}; "
+          f"glmix_margin launches {launches} ({traffic_launches} for "
+          f"traffic: one a batch); kernel builds {stats['kernel_builds']}",
+          flush=True)
+    print(f"[4/6] [{card}] profiled window: {window['batches']} batches, "
+          f"device events {window['events']}; kernel time "
+          f"{window['kernel_ms']:.4f} ms, copies "
+          f"{window['copy_ms']:.4f} ms", flush=True)
 
     lat = stats_a["latency_seconds"]
     stage_ms = {stage: {q: (None if lat[stage].get(q) is None
@@ -501,7 +628,58 @@ def serving_main_path(gm, rng, card: str) -> dict:
           f"{serving['serve_single_ms']['p50']:.4f} ms, p99 "
           f"{serving['serve_single_ms']['p99']:.4f} ms", flush=True)
     shutil.rmtree(WORK_DIR, ignore_errors=True)
-    return {"launches": launches, "serving": serving}
+    return {"launches": launches, "serving": serving, "profiled": window}
+
+
+def profile_serving(engine, gm, reqs) -> dict:
+    """Serve ``reqs`` through submit/pump/drain under torch.profiler and
+    hold the device's events to the batches: exactly one
+    ``glmix_margin_kernel`` launch, one host-to-device copy and one
+    device-to-host copy a batch, nothing else on the device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    before = gm.launches
+    out = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in reqs:
+            refused = engine.submit(r)
+            if refused is not None:
+                raise AssertionError(f"{r.uid} refused: {refused.fallbacks}")
+            if engine.batcher.depth() >= MAX_BATCH:
+                out.extend(engine.pump())
+        out.extend(engine.drain())
+        torch.cuda.synchronize()
+    batches = gm.launches - before
+    events = {"kernel": 0, "htod": 0, "dtoh": 0}
+    other, kernel_ms, copy_ms = {}, 0.0, 0.0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "device_time", None)
+        us = evt.cuda_time if us is None else us
+        name = evt.name
+        if name.startswith("Memcpy HtoD"):
+            events["htod"] += 1
+            copy_ms += us / 1e3
+        elif name.startswith("Memcpy DtoH"):
+            events["dtoh"] += 1
+            copy_ms += us / 1e3
+        elif "glmix_margin_kernel" in name:
+            events["kernel"] += 1
+            kernel_ms += us / 1e3
+        else:
+            other[name[:60]] = other.get(name[:60], 0) + 1
+    want = {"kernel": batches, "htod": batches, "dtoh": batches}
+    if batches < PROFILED_BATCHES or events != want or other:
+        raise AssertionError(
+            f"profiled serving window: {batches} batches, device events "
+            f"{events}, others {other}; want one kernel, one copy in and "
+            f"one copy out a batch over >= {PROFILED_BATCHES} batches")
+    return {"batches": batches, "events": events, "kernel_ms": kernel_ms,
+            "copy_ms": copy_ms, "responses": out}
 
 
 # ---------------------------------------------------------------------------
@@ -557,6 +735,283 @@ def time_gather_margin(gm, rng, dev, B: int, K: int, D: int, live: int,
     out.update(bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                bytes=nbytes)
+    return out
+
+
+def _margin_fns(gm):
+    """The C launchers: the one the wrappers call (here with no copies,
+    to time the kernel alone on the staged device buffer) and the launch
+    floor's (``csrc/launch_floor.cu``), which the port never calls."""
+    from photon_tpu_torch.ops import cuda_build
+
+    empty = cuda_build.load_library(FLOOR_KERNEL).empty_margin_launch
+    if empty.argtypes is None:
+        empty.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_longlong, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_longlong,
+                          ctypes.c_void_p]
+        empty.restype = ctypes.c_int
+    return gm._bind(cuda_build.load_library(gm.KERNEL)), empty
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def host_ms(fn, iters: int, warm: int = 50) -> dict:
+    """p50 / p99 / mean host milliseconds of calls that each wait for
+    their own result (perf_counter around each call)."""
+    for _ in range(warm):
+        fn()
+    t = np.empty(iters)
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        t[i] = time.perf_counter() - t0
+    t *= 1e3
+    return {"p50": float(np.percentile(t, 50)),
+            "p99": float(np.percentile(t, 99)), "mean": float(t.mean())}
+
+
+def glmix_bound(B: int, K: int, D: int, widths) -> dict:
+    """Bytes a call must move (idx, val, off in and out, per coordinate
+    ent, sidx, sval and at most K_c table values a row, theta) and its
+    flops, against the card's rates."""
+    nbytes = (B * K * 8 + B * 8 + sum(B * (4 + k * 12) for k in widths)
+              + D * 4)
+    return _bound(nbytes, 2 * B * (K + sum(widths)), F32_FLOPS)
+
+
+def time_glmix_margin(gm, rng, dev, B: int, K: int, D: int, live: int,
+                      widths, entities: int, reps: int, replays: int,
+                      iters: int) -> dict:
+    """The fused kernel alone (on the staged device buffer), its plain
+    version, ``F.embedding_bag`` for the fixed term, and the parent's
+    chain (K3's launch, then per coordinate ``index_select``, ``gather``,
+    multiply, sum, add: what its scorer ran after its copies), on the
+    same inputs, in CUDA-graph replay and eager. The eager kernel time is
+    the wrapper's whole call: copy in, launch, copy out, wait."""
+    import torch.nn.functional as Fn
+
+    theta = torch.as_tensor(rng.normal(size=D), dtype=torch.float32,
+                            device=dev)
+    tables = [torch.as_tensor(np.concatenate(
+        [rng.normal(size=(entities, k)), np.zeros((1, k))]),
+        dtype=torch.float32, device=dev) for k in widths]
+    state = gm.MarginState(theta, tables, K)
+    full = bool(widths)
+    fill_margin(rng, state, B, full, live=live, stray=False)
+    before = gm.launches
+    got = gm.glmix_margin(state, B, full)
+    idx, val, off, coords = state.arrays(state.dev, B, full)
+    want = margin_reference(gm, state, state.host, B, full)
+    mag = margin_reference(gm, state, state.host, B, full, magnitude=True)
+    what = f"B={B} K={K} D={D} slot widths {widths}"
+    err = check_close(got, want, f"glmix_margin timing shape {what}", mag)
+    launch, _ = _margin_fns(gm)
+    _, i_ptr, v_ptr, o_ptr, desc, n = state.launch_args(B, full)
+    dptr, out_ptr = state.dev.data_ptr(), state.out.data_ptr()
+
+    def kernel():
+        _raise_on(launch(None, dptr, 0, i_ptr, v_ptr, o_ptr,
+                         theta.data_ptr(), desc, n, out_ptr, None, B, K, D,
+                         torch.cuda.current_stream().cuda_stream),
+                  "glmix_margin kernel")
+
+    def plain():
+        return margin_reference(gm, state, state.dev, B, full)
+
+    emb = theta[:, None]
+
+    def library():
+        return Fn.embedding_bag(idx, emb, per_sample_weights=val,
+                                mode="sum")[:, 0] + off
+
+    ents = [c[0].long() for c in coords]
+    sidxs = [c[1].long() for c in coords]
+
+    def chain():
+        total = gm.gather_margin(idx, val, off, theta)
+        for t, e, s, c in zip(tables, ents, sidxs, coords):
+            total = total + (c[2] * torch.gather(t.index_select(0, e), 1,
+                                                 s)).sum(dim=-1)
+        return total
+
+    kernel()
+    check_close(state.out[:B], want, f"glmix_margin kernel alone {what}",
+                mag)
+    check_close(chain(), want, f"parent chain {what}", mag)
+    check_close(library(), margin_reference(gm, state, state.host, B,
+                                            False),
+                f"embedding_bag {what}",
+                margin_reference(gm, state, state.host, B, False, True))
+    out = {"B": B, "K": K, "D": D, "live_slots": live,
+           "slot_widths": list(widths), "max_abs_err": err,
+           "library_ms": None, "eager_library_ms": None}
+    out["ms"] = graph_ms(kernel, reps, replays)
+    out["kernel_only_eager_ms"] = time_ms(kernel, iters)
+    out["eager_ms"] = time_ms(lambda: gm.glmix_margin(state, B, full),
+                              iters)
+    for key, fn in (("plain_ms", plain), ("embedding_bag_fixed_ms", library),
+                    ("parent_chain_ms", chain)):
+        out[key] = graph_ms(fn, reps, replays)
+        out["eager_" + key] = time_ms(fn, iters)
+    gm.launches = before   # timing launches are not main-path launches
+    out.update(glmix_bound(B, K, D, widths))
+    return out
+
+
+def time_launch_floor(gm, rng, dev, iters: int) -> dict:
+    """At the serving bucket (B 64, the serving model's layout: K_f 256,
+    one coordinate of 8 slots): the empty kernel on the same grid in
+    graph replay, and one C-call round trip around it (copy in, empty
+    kernel, copy out, the wait), the result copied back into pinned
+    memory by the call itself or by ``.cpu()`` after it, taken in turns;
+    beside them the fused wrapper's own call on the same batch."""
+    theta = torch.zeros(D_GLOBAL, device=dev)
+    state = gm.MarginState(theta, [torch.zeros(N_USERS + 1, K_USER,
+                                               device=dev)], 256)
+    B = MAX_BATCH
+    fill_margin(rng, state, B, True, live=NNZ, stray=False)
+    _, empty = _margin_fns(gm)
+    dptr, out_ptr = state.dev.data_ptr(), state.out.data_ptr()
+    host, host_out = state.host.data_ptr(), state.host_out.data_ptr()
+    nbytes = state.launch_args(B, True)[0]
+    done = torch.cuda.Event()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+
+    def empty_kernel():
+        _raise_on(empty(None, dptr, 0, out_ptr, None, B, stream()), "empty")
+
+    def pinned():
+        _raise_on(empty(host, dptr, nbytes, out_ptr, host_out, B, stream()),
+                  "empty round trip")
+        done.record()
+        done.synchronize()
+
+    def cpu():
+        _raise_on(empty(host, dptr, nbytes, out_ptr, None, B, stream()),
+                  "empty round trip")
+        state.out[:B].cpu()
+
+    before = gm.launches
+    out = {"B": B, "bytes_in": nbytes,
+           "empty_graph_ms": graph_ms(empty_kernel, 200, 20)}
+    turns = {"round_trip_pinned": [], "round_trip_cpu": []}
+    for key, fn in (("round_trip_pinned", pinned), ("round_trip_cpu", cpu),
+                    ("round_trip_cpu", cpu), ("round_trip_pinned", pinned)):
+        turns[key].append(host_ms(fn, iters // 2))
+    for key, runs in turns.items():
+        out[key] = {q: float(np.mean([r[q] for r in runs]))
+                    for q in ("p50", "p99", "mean")}
+    out["glmix_margin_call"] = host_ms(
+        lambda: gm.glmix_margin(state, B, True), iters)
+    gm.launches = before
+    return out
+
+
+def time_scorer(rng, iters: int) -> dict:
+    """``scorer.dispatch(model, mode, args)`` through to the host result,
+    p50 / p99 over ``iters`` back-to-back calls in each mode, and over
+    ``iters / 4`` calls each after a batch's assembly, on a DeviceResidentModel
+    of the serving width staged on the card, one batch of 64 requests
+    (the same public call on any tree of the port; its scores are held
+    to the float64 oracle first)."""
+    from photon_tpu_torch.serving import ServingConfig, ServingEngine
+    from photon_tpu_torch.serving import scorer
+
+    model_dir = os.path.join(WORK_DIR, "scorer_model")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    theta, coef, proj = write_model(model_dir, rng)
+    engine = ServingEngine.from_model_dir(
+        model_dir, ServingConfig(max_batch=MAX_BATCH))
+    engine.warmup()
+    model = engine.model
+    reqs = make_requests(rng, "t", MAX_BATCH)
+    out = {}
+    for mode in ("full", "fixed_only"):
+        args, _, _ = model.assemble(reqs, MAX_BATCH,
+                                    shed_random=mode != "full")
+        scores = scorer.dispatch(model, mode, args).cpu().numpy()
+        for r, got in zip(reqs, scores):
+            want = oracle(r, theta, coef, proj, with_random=mode == "full")
+            if abs(got - want) > ATOL + RTOL * abs(want):
+                raise AssertionError(f"scorer.dispatch {mode} {r.uid}: "
+                                     f"{got} vs oracle {want}")
+        out[mode] = host_ms(lambda: scorer.dispatch(model, mode, args).cpu(),
+                            iters)
+        # the engine's cadence: each call after a batch's host assembly
+        # (~2 ms of Python, the card idle meanwhile), only the call timed
+        t = np.empty(iters // 4)
+        for i in range(len(t)):
+            model.assemble(reqs, MAX_BATCH, shed_random=mode != "full")
+            t0 = time.perf_counter()
+            scorer.dispatch(model, mode, args).cpu()
+            t[i] = (time.perf_counter() - t0) * 1e3
+        out[mode + " after assemble"] = {
+            "p50": float(np.percentile(t, 50)),
+            "p99": float(np.percentile(t, 99)), "mean": float(t.mean())}
+    shutil.rmtree(WORK_DIR, ignore_errors=True)
+    return out
+
+
+def time_serving(gm, rng, dev, card: str) -> dict:
+    """Phase 6 for the serving margin: K3's fixed-term wrapper at the
+    serving and throughput shapes, the fused kernel (where the tree has
+    it) at the serving shape and the throughput shape with and without a
+    coordinate, the launch floor, and the scorer's dispatch."""
+    out = {"k3": [time_gather_margin(gm, rng, dev, 64, 256, D_GLOBAL, NNZ,
+                                     iters=2000, reps=200, replays=20),
+                  time_gather_margin(gm, rng, dev, 65_536, 256, 4_096, 256,
+                                     iters=50, reps=10, replays=5)]}
+    for label, r in zip(("serving", "throughput"), out["k3"]):
+        print(f"[6/6] [{card}] gather_margin (K3, fixed term) {label} shape "
+              f"B={r['B']} K={r['K']} D={r['D']}, ms per call, graph replay "
+              f"(eager): kernel {r['ms']:.5f} ({r['eager_ms']:.5f}), plain "
+              f"{r['plain_ms']:.5f} ({r['eager_plain_ms']:.5f}), "
+              f"embedding_bag {r['library_ms']:.5f} "
+              f"({r['eager_library_ms']:.5f}); bound {r['bound_ms']:.6f} "
+              f"({r['bound_by']}, {r['bytes']} bytes at 3.35 TB/s)",
+              flush=True)
+    if hasattr(gm, "glmix_margin"):
+        out["fused"] = [
+            time_glmix_margin(gm, rng, dev, 64, 256, D_GLOBAL, NNZ,
+                              (K_USER,), N_USERS, reps=200, replays=20,
+                              iters=2000),
+            time_glmix_margin(gm, rng, dev, 65_536, 256, 4_096, 256, (),
+                              0, reps=10, replays=5, iters=20),
+            time_glmix_margin(gm, rng, dev, 65_536, 256, 4_096, 256,
+                              (K_USER,), N_USERS, reps=10, replays=5,
+                              iters=20)]
+        for r in out["fused"]:
+            print(f"[6/6] [{card}] glmix_margin (fused) B={r['B']} K={r['K']} "
+                  f"D={r['D']} slot widths {r['slot_widths']}, ms per call, "
+                  f"graph replay (eager): kernel {r['ms']:.5f} "
+                  f"({r['kernel_only_eager_ms']:.5f}; the wrapper's call "
+                  f"with its copies and wait {r['eager_ms']:.5f}), plain "
+                  f"{r['plain_ms']:.5f} ({r['eager_plain_ms']:.5f}), "
+                  f"parent chain {r['parent_chain_ms']:.5f} "
+                  f"({r['eager_parent_chain_ms']:.5f}), embedding_bag "
+                  f"fixed term {r['embedding_bag_fixed_ms']:.5f} "
+                  f"({r['eager_embedding_bag_fixed_ms']:.5f}); bound "
+                  f"{r['bound_ms']:.6f} ({r['bound_by']}, {r['bytes']} "
+                  f"bytes at 3.35 TB/s)", flush=True)
+        f = out["floor"] = time_launch_floor(gm, rng, dev, iters=2000)
+        print(f"[6/6] [{card}] launch floor B={f['B']}: empty kernel "
+              f"{f['empty_graph_ms']:.5f} ms in graph replay; C-call round "
+              f"trip ({f['bytes_in']} bytes in, empty kernel, copy out, "
+              f"wait) p50 {f['round_trip_pinned']['p50']:.5f} ms p99 "
+              f"{f['round_trip_pinned']['p99']:.5f} (result back by .cpu(): "
+              f"p50 {f['round_trip_cpu']['p50']:.5f} p99 "
+              f"{f['round_trip_cpu']['p99']:.5f}); glmix_margin call p50 "
+              f"{f['glmix_margin_call']['p50']:.5f} p99 "
+              f"{f['glmix_margin_call']['p99']:.5f}", flush=True)
+    out["scorer"] = time_scorer(rng, iters=2000)
+    for mode, q in out["scorer"].items():
+        print(f"[6/6] [{card}] scorer.dispatch {mode} B={MAX_BATCH} to the "
+              f"host result: p50 {q['p50']:.5f} ms, p99 {q['p99']:.5f}, "
+              f"mean {q['mean']:.5f}", flush=True)
     return out
 
 
@@ -1263,10 +1718,13 @@ def time_value_grad(fvg, dense_inputs, g, dev, card):
     return k1_times, k2_times
 
 
-def times_only(fvg, seed: int, dev, card: str) -> int:
-    """``--times-only``: phase 6 for K1 and K2 alone, on fresh data of the
-    training main path's dense shape. Prints the times and a JSON line
-    ``{"times": ...}``, and no ``ok`` line: it checks no main path."""
+def times_only(fvg, gm, seed: int, dev, card: str) -> int:
+    """``--times-only``: phase 6 alone, on fresh data: the serving margin
+    (K3, the fused kernel where the tree has it, the launch floor, the
+    scorer's dispatch) and K1 and K2 at the training main path's shapes.
+    Prints the times and a JSON line ``{"times": ...}``, and no ``ok``
+    line: it checks no main path."""
+    serving = time_serving(gm, np.random.default_rng(seed), dev, card)
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(FE_N, FE_D, generator=g, device=dev)
     y = (torch.rand(FE_N, generator=g, device=dev) < 0.5).float()
@@ -1275,7 +1733,10 @@ def times_only(fvg, seed: int, dev, card: str) -> int:
     k1, k2 = time_value_grad(fvg, (feats, y), g, dev, card)
     compact = lambda rs: [{k: v for k, v in r.items()
                            if not k.startswith("eager_")} for r in rs]
-    print(json.dumps({"times": {"K1": compact(k1), "K2": compact(k2)}}))
+    serving = {k: compact(v) if isinstance(v, list) else v
+               for k, v in serving.items()}
+    print(json.dumps({"times": {"serving": serving, "K1": compact(k1),
+                                "K2": compact(k2)}}))
     return 0
 
 
@@ -1291,12 +1752,12 @@ def _print_vg_times(card, name, r):
           f"{r['max_scaled_err']:.3e} of the magnitude sum", flush=True)
 
 
-def _record(name, source, replaces, launches, err, main, shapes):
+def _record(name, source, replaces, launches, err, main, shapes, **extra):
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "eager_ms", "eager_plain_ms", "eager_library_ms")
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches, "max_abs_err": err,
-           **{k: main[k] for k in keys}}
+           **{k: main[k] for k in keys}, **extra}
     if shapes:
         rec["shapes"] = shapes
     return rec
@@ -1306,8 +1767,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--times-only", action="store_true",
-                    help="build the kernels and time K1 and K2 alone "
-                         "(phases 1, 2 and 6); no ok line")
+                    help="build the kernels and run the times of phase 6 "
+                         "alone (phases 1, 2 and 6); no ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1329,18 +1790,26 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = [gm.KERNEL, fvg.KERNEL]
+    if hasattr(gm, "glmix_margin"):    # a parent tree may predate it
+        libs.append(FLOOR_KERNEL)
     cuda_build.load_libraries(libs)
     build_s = time.perf_counter() - t0
     print(f"[2/6] built and loaded {', '.join(libs)} "
           f"({cuda_build.builds} nvcc runs in parallel, {cuda_build.loads} "
           f"loads) in {build_s:.2f}s", flush=True)
     if args.times_only:
-        return times_only(fvg, args.seed, dev, card)
+        return times_only(fvg, gm, args.seed, dev, card)
 
     rng = np.random.default_rng(args.seed)
     check_err, cases = check_gather_margin(gm, rng, dev)
     print(f"[3/6] gather_margin vs plain version: {cases} cases, max abs "
           f"err {check_err:.3e} (atol {ATOL}, rtol {RTOL}), second launch "
+          f"bitwise equal", flush=True)
+    glmix_err, glmix_cases = check_glmix_margin(gm, rng, dev)
+    print(f"[3/6] glmix_margin (fused) vs plain version: {glmix_cases} "
+          f"cases (B {GLMIX_BS}, slot widths {GLMIX_COORDS} and "
+          f"fixed-only, K_f {GLMIX_KF}), max abs err {glmix_err:.3e} (atol "
+          f"{ATOL}, rtol {RTOL} of the magnitude sums), second launch "
           f"bitwise equal", flush=True)
     g = torch.Generator(device=dev).manual_seed(args.seed)
     all_losses = (losses.LogisticLoss, losses.SquaredLoss,
@@ -1357,30 +1826,25 @@ def main() -> int:
     main_path = serving_main_path(gm, rng, card)
     training = training_main_path(args.seed, dev, card)
 
-    main_shape = time_gather_margin(gm, rng, dev, 64, 256, D_GLOBAL, NNZ,
-                                    iters=2000, reps=200, replays=20)
-    big_shape = time_gather_margin(gm, rng, dev, 65_536, 256, 4_096, 256,
-                                   iters=50, reps=10, replays=5)
-    for label, r in (("main-path", main_shape), ("throughput", big_shape)):
-        print(f"[6/6] [{card}] gather_margin {label} shape B={r['B']} "
-              f"K={r['K']} D={r['D']}, ms per call, graph replay (eager): "
-              f"kernel {r['ms']:.5f} ({r['eager_ms']:.5f}), plain "
-              f"{r['plain_ms']:.5f} ({r['eager_plain_ms']:.5f}), "
-              f"embedding_bag {r['library_ms']:.5f} "
-              f"({r['eager_library_ms']:.5f}); bound {r['bound_ms']:.6f} "
-              f"({r['bound_by']}, {r['bytes']} bytes at 3.35 TB/s)",
-              flush=True)
+    serving_times = time_serving(gm, rng, dev, card)
 
     k1_times, k2_times = time_value_grad(fvg, training.pop("dense_inputs"),
                                          g, dev, card)
 
     compact = lambda rs: [{k: v for k, v in r.items()
                            if not k.startswith("eager_")} for r in rs]
+    fused, k3 = serving_times["fused"], serving_times["k3"]
     record = {"kernels": [
-        _record(gm.KERNEL, "photon_tpu_torch/csrc/gather_margin.cu",
+        _record("glmix_margin", "photon_tpu_torch/csrc/gather_margin.cu",
                 "photon_tpu/ops/pallas_glm.py:369", main_path["launches"],
-                max(check_err, main_shape["max_abs_err"],
-                    big_shape["max_abs_err"]), main_shape, None),
+                max([check_err, glmix_err]
+                    + [r["max_abs_err"] for r in fused + k3]),
+                fused[0], compact(fused[1:] + k3),
+                main_shape={k: v for k, v in fused[0].items()
+                            if k not in ("max_abs_err", "ms", "plain_ms",
+                                         "eager_ms", "eager_plain_ms")},
+                launch_floor=serving_times["floor"],
+                scorer_dispatch=serving_times["scorer"]),
         _record("fused_dense_value_grad",
                 "photon_tpu_torch/csrc/fused_value_grad.cu",
                 "photon_tpu/ops/pallas_glm.py:101",

@@ -3,7 +3,8 @@
 The port of ``photon_tpu/ops/features.py``. Sparse rows use the padded
 ELL layout (``indices [n, k]`` int32, ``values [n, k]``) with pad slots
 ``(0, 0.0)``, so pads contribute ``0 * theta[0]`` to margins and scatter
-``+0`` into gradients and no mask is needed.
+``+0`` into gradients. An index outside ``[0, D)`` adds 0 everywhere (the
+Pallas kernels' semantics, which the port's K2 keeps too).
 
 The aggregators (``ops/aggregators.py``) reduce to three primitives on
 either layout — ``matvec`` (margins), ``rmatvec`` (``X^T w``) and
@@ -51,20 +52,38 @@ def _promoted(a: Tensor, dtype: torch.dtype) -> Tensor:
     return a if a.dtype == dtype else a.to(dtype)
 
 
+def _in_range(x: SparseFeatures, dim: int):
+    """(column ids clamped into [0, dim), whether each id was in range).
+    An id outside [0, dim) adds 0 on every route, as in the Pallas
+    kernels and the port's K2, where it matches no column."""
+    cols = x.indices.long()
+    return cols.clamp(0, max(dim - 1, 0)), (cols >= 0) & (cols < dim)
+
+
 def matvec(x: FeatureMatrix, theta: Tensor) -> Tensor:
     """Per-sample margins ``X @ theta`` -> [n]."""
     if isinstance(x, SparseFeatures):
         dt = torch.promote_types(x.values.dtype, theta.dtype)
-        gathered = _promoted(theta, dt)[x.indices.long()]
-        return (_promoted(x.values, dt) * gathered).sum(dim=-1)
+        cols, keep = _in_range(x, theta.shape[0])
+        vals = _promoted(x.values, dt)
+        if not theta.shape[0]:
+            return torch.zeros(vals.shape[0], dtype=dt, device=vals.device)
+        terms = vals * _promoted(theta, dt)[cols]
+        return torch.where(keep, terms, torch.zeros_like(terms)).sum(dim=-1)
     dt = torch.promote_types(x.dtype, theta.dtype)
     return _promoted(x, dt) @ _promoted(theta, dt)
 
 
 def _scatter(x: SparseFeatures, contrib: Tensor, dim: int) -> Tensor:
+    """Sum ``contrib`` [n, k] into [dim] by column; an id outside [0, dim)
+    sends nothing."""
+    cols, keep = _in_range(x, dim)
     out = torch.zeros(dim, dtype=contrib.dtype, device=contrib.device)
-    return out.index_put_((x.indices.reshape(-1).long(),),
-                          contrib.reshape(-1), accumulate=True)
+    if not dim:
+        return out
+    kept = torch.where(keep, contrib, torch.zeros_like(contrib))
+    return out.index_put_((cols.reshape(-1),), kept.reshape(-1),
+                          accumulate=True)
 
 
 def rmatvec(x: FeatureMatrix, w: Tensor, dim: int) -> Tensor:
@@ -96,9 +115,10 @@ def weighted_gram(x: FeatureMatrix, w: Tensor, dim: int) -> Tensor:
         if k <= 64:
             # per-slot scatter of the outer product: temporaries are
             # [n, k], the data's own footprint, never an [n, dim] copy
+            cols, keep = _in_range(x, dim)
             vals = _promoted(x.values, w.dtype)
+            vals = torch.where(keep, vals, torch.zeros_like(vals))
             wv = w[:, None] * vals                              # [n, k]
-            cols = x.indices.long()
             h = torch.zeros(dim * dim, dtype=wv.dtype, device=w.device)
             for j in range(k):
                 flat = cols[:, j:j + 1] * dim + cols            # [n, k]
@@ -118,8 +138,9 @@ def to_dense(x: FeatureMatrix, dim: int) -> Tensor:
         out = torch.zeros(n * dim, dtype=x.values.dtype,
                           device=x.values.device)
         rows = torch.arange(n, device=x.indices.device)[:, None]
-        flat = rows * dim + x.indices.long()
-        out.index_put_((flat.reshape(-1),), x.values.reshape(-1),
+        cols, keep = _in_range(x, dim)
+        vals = torch.where(keep, x.values, torch.zeros_like(x.values))
+        out.index_put_(((rows * dim + cols).reshape(-1),), vals.reshape(-1),
                        accumulate=True)
         return out.reshape(n, dim)
     return x

@@ -10,8 +10,8 @@ The port of ``photon_tpu/serving/engine.py``. Request lifecycle::
     pump() ── batch ready? ──> expire overdue ──> typed DEADLINE_EXCEEDED
         │                          │ survivors: assemble (host pack, pad)
         ▼                          ▼ depth > shed / breaker shed? fixed_only
-    responses <── unpad <── scorer (one kernel launch per batch for the
-                                │   fixed effects)
+    responses <── unpad <── scorer (one staged copy in, one kernel
+                                │   launch, one copy out per batch)
                                 └ stage latency + ok ──> circuit breaker
 
 Everything observable lands in the port's metrics registry under the
@@ -244,8 +244,8 @@ class ServingEngine:
             requests, bucket, shed_random=shed_any)
         t_assemble = time.perf_counter() - t0
 
-        # the score stage: host->device copies, the kernel launches and
-        # the device->host copy that waits for them
+        # the score stage: the pack into the staging buffer, the copy in,
+        # the kernel launch and the copy out that dispatch waits for
         t0 = time.perf_counter()
         scores = None
         try:

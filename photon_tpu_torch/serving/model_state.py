@@ -4,8 +4,10 @@ The port of ``photon_tpu/serving/model_state.py`` (full-resident tables
 on one device). Coefficient arrays go to the device exactly once at
 model load — the fixed-effect vectors, and the per-entity random-effect
 blocks laid out as gather tables with one explicit zero row for unknown
-entities — and every request batch only ships its own [B, k] feature
-arrays. Per-request work is a gather + dot, never a model re-stage.
+entities, described to the scorer's kernel by a small device array —
+and every request batch only ships its own [B, k] feature arrays, in one
+staged copy. Per-request work is a gather + dot, never a model
+re-stage.
 
 Host side, the model keeps the lookup tables that turn a request into
 arrays: per-shard feature IndexMaps (request (name, term) -> column),
@@ -27,6 +29,7 @@ import torch
 
 from photon_tpu_torch.device import DeviceLike, resolve_device
 from photon_tpu_torch.io.model_io import ServingGameModel
+from photon_tpu_torch.ops.gather_margin import MarginState
 from photon_tpu_torch.serving.types import (Fallback, FallbackReason,
                                             ScoreRequest)
 
@@ -127,6 +130,15 @@ class DeviceResidentModel:
                 re.coordinate_id, re.random_effect_type, re.feature_shard_id,
                 self._put(coef), E, E, K, dict(re.entity_rows),
                 pkeys[order], ps[order].astype(np.int64)))
+
+        # the scorer's kernel state: theta_all, the gather tables and their
+        # descriptors, and the staging buffers. The descriptors hold the
+        # tables' addresses, fixed for the model's life: nothing here
+        # swaps a table yet, and a coefficient store that does must
+        # rebuild them
+        self.margin = MarginState(
+            self.theta_all, [rs.coef for rs in self.random],
+            sum(self.shard_pad[self.shard_order[p]] for p in self.fixed_pos))
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

@@ -1,26 +1,28 @@
 """Batch scorers for the serving engine.
 
 The port of ``photon_tpu/serving/scorer.py`` for the modes ``full`` and
-``fixed_only``. One scoring call per batch:
+``fixed_only``. One scoring call per batch, ONE call of the GLMix margin
+wrapper (ops/gather_margin.py) for the whole margin, always, with no
+switch:
 
 * the fixed-effect term: every fixed shard's padded (index, value) slots
-  are concatenated against the model's one coefficient vector, each
-  shard's columns shifted by its offset (the JAX scorer's
-  ``_fused_fixed_margin``), and the whole term, offsets included, is ONE
-  call of the gather+margin kernel wrapper (ops/gather_margin.py) —
-  always, with no switch: on the card that is one kernel launch;
-* the random-effect term (``full`` only) stays plain PyTorch, as the JAX
-  package leaves it to XLA: an entity-row gather from the table, a
-  slot-aligned gather along the row, a multiply and a sum. Unknown
-  entities and pad rows gather the explicit zero row.
+  side by side against the model's one coefficient vector, each shard's
+  columns shifted by its offset (the JAX scorer's
+  ``_fused_fixed_margin``), offsets included;
+* the random-effect terms (``full`` only): per coordinate, the entity's
+  row of the gather table, the slot-aligned values along it, multiplied
+  and summed. Unknown entities and pad rows gather the explicit zero row.
 
-Arguments arrive as the host arrays ``DeviceResidentModel.assemble``
-packs; ``dispatch`` moves them to the model's device.
+``dispatch`` packs the host arrays ``DeviceResidentModel.assemble``
+builds into the model's staging buffer (``pack``); on the card the
+wrapper then makes one C call — one copy in, one kernel launch, one copy
+out — and waits for it. On the CPU it runs the plain version on the
+packed arrays.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -35,57 +37,78 @@ from photon_tpu_torch.serving.model_state import DeviceResidentModel
 MODES = ("full", "fixed_only")
 
 
-def fixed_slots(model: DeviceResidentModel, fixed_idx, fixed_val
-                ) -> Tuple[np.ndarray, np.ndarray]:
-    """Concatenate every fixed coordinate's shard slots into one
-    ([B, k_total] int32 columns of ``model.theta_all``, [B, k_total]
-    f32 values). Pad slots (0, 0.0) stay inert after the shift."""
-    if not model.fixed_pos:
-        b = fixed_idx[0].shape[0] if fixed_idx else 0
-        return np.zeros((b, 0), np.int32), np.zeros((b, 0), np.float32)
-    idx = np.concatenate(
-        [fixed_idx[p] + np.int32(off)
-         for p, off in zip(model.fixed_pos, model.fixed_col_off)], axis=1)
-    val = np.concatenate([fixed_val[p] for p in model.fixed_pos], axis=1)
-    return idx, val
+def _same_shape(dst: np.ndarray, src: np.ndarray, what: str) -> None:
+    # numpy would broadcast a short array over the rows
+    if src.shape != dst.shape:
+        raise ValueError(f"scorer: {what} {src.shape} != {dst.shape}")
+
+
+def pack(model: DeviceResidentModel, with_random: bool, args) -> int:
+    """Pack one assembled batch into ``model.margin``'s staging buffer
+    (the kernel's layout, ``MarginState``): every fixed shard's slots side
+    by side, each shifted by its shard's column offset, the offsets, then
+    (``with_random``) every coordinate's entity rows and slots. The int64
+    entity rows and slot ids become int32, clipped to [-1, E + 1] and
+    [-1, K]: a value out of range stays out of range (and adds 0), so no
+    size wraps. Returns the batch's row count. The caller holds
+    ``model.margin.lock`` through the kernel call that reads the batch."""
+    fixed_idx, fixed_val, re_sidx, re_sval, re_ent, offsets = args
+    B = offsets.shape[0]
+    state = model.margin
+    state.reserve(B)
+    idx, val, off, coords = state.arrays(state.host_np, B, with_random)
+    col = 0
+    for p, shift in zip(model.fixed_pos, model.fixed_col_off):
+        w = fixed_idx[p].shape[-1]
+        _same_shape(idx[:, col:col + w], fixed_idx[p], "fixed idx")
+        _same_shape(val[:, col:col + w], fixed_val[p], "fixed val")
+        np.add(fixed_idx[p], np.int32(shift), out=idx[:, col:col + w])
+        val[:, col:col + w] = fixed_val[p]
+        col += w
+    if col != state.k_fixed:
+        raise ValueError(f"scorer: {col} fixed slots, model has "
+                         f"{state.k_fixed}")
+    _same_shape(off, offsets, "offsets")
+    off[:] = offsets
+    for (ent, sidx, sval), rs, e, s, v in zip(coords, model.random, re_ent,
+                                              re_sidx, re_sval):
+        _same_shape(ent, e, "entity rows")
+        _same_shape(sidx, s, "slot ids")
+        _same_shape(sval, v, "slot values")
+        np.clip(e, -1, rs.num_entities + 1, out=ent, casting="unsafe")
+        np.clip(s, -1, rs.slot_width, out=sidx, casting="unsafe")
+        sval[:] = v
+    return B
 
 
 def dispatch(model: DeviceResidentModel, mode: str, args) -> torch.Tensor:
-    """Score one assembled batch in ``mode``; returns [bucket] f32 on the
-    model's device (asynchronous on the card)."""
+    """Score one assembled batch in ``mode``; returns a new [bucket] f32
+    tensor on the host (on the card, once the batch's copies are done).
+
+    The model has one staging buffer, so dispatches on one model take
+    turns: each holds ``model.margin.lock`` from its pack through its
+    kernel call, and callers on several threads get their own scores."""
     if mode not in MODES:
         raise ValueError(f"unknown serving mode {mode!r}")
-    fixed_idx, fixed_val, re_sidx, re_sval, re_ent, offsets = args
-    dev = model.device
-
-    def put(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    idx, val = fixed_slots(model, fixed_idx, fixed_val)
-    total = _gm.gather_margin(put(idx), put(val), put(offsets),
-                              model.theta_all)
-    if mode == "full":
-        for rs, sidx, sval, ent in zip(model.random, re_sidx, re_sval,
-                                       re_ent):
-            rows = rs.coef.index_select(0, put(ent))
-            total = total + (put(sval)
-                             * torch.gather(rows, 1, put(sidx))).sum(dim=-1)
-    return total
+    with_random = mode == "full"
+    with model.margin.lock:
+        B = pack(model, with_random, args)
+        return _gm.glmix_margin(model.margin, B, with_random)
 
 
 def warmup_scorers(model: DeviceResidentModel,
                    buckets: Sequence[int]) -> int:
-    """Load the kernel library (building it from source if needed) and
-    dispatch every (mode, bucket) once on zero inputs, so steady-state
-    traffic builds nothing. Returns the number of dispatches."""
+    """Load the kernel library (building it from source if needed), size
+    the staging buffers for the largest bucket, and dispatch every (mode,
+    bucket) once on zero inputs, so steady-state traffic builds and
+    allocates nothing. Returns the number of dispatches."""
     if model.device.type == "cuda":
         cuda_build.load_library(_gm.KERNEL)
+    model.margin.reserve(max(buckets, default=0))
     warmed = 0
     for bucket in buckets:
         args = model.dummy_args(bucket)
         for mode in MODES:
             dispatch(model, mode, args)
             warmed += 1
-    if model.device.type == "cuda":
-        torch.cuda.synchronize(model.device)
     return warmed

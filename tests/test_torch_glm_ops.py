@@ -23,6 +23,7 @@ from photon_tpu.ops import aggregators as jagg
 from photon_tpu.ops import features as JF
 from photon_tpu.ops import losses as JL
 from photon_tpu.ops import normalization as JN
+from photon_tpu.ops import pallas_glm
 from photon_tpu_torch.data.dataset import DataBatch
 from photon_tpu_torch.function.objective import GLMObjective, Hyper
 from photon_tpu_torch.ops import aggregators as agg
@@ -359,3 +360,43 @@ def test_routing_by_structure(case, route):
                         else torch.float32)
     np.testing.assert_allclose(float(pv), float(jv), rtol=1e-5)
     np.testing.assert_allclose(pg.numpy(), _np(jg), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("route", ["f64_coef", "normalized"])
+def test_out_of_range_ell_ids_add_zero_on_the_two_pass_route(route):
+    """An ELL id outside [0, D) adds 0 on the two-pass route (an f64 coef,
+    or a normalization), as on the K2 route (its plain version here) and
+    in the Pallas kernel (interpret mode): the id 5 with D = 4 matches no
+    column. The normalized case uses factors that are powers of two, so
+    coef / f * f is the K2 case's coef exactly; its gradient is f * X^T r."""
+    idx = np.array([[0, 5], [1, 2]], np.int32)
+    val = np.array([[0.5, -1.0], [2.0, 0.25]], np.float32)
+    y = np.array([1.0, 0.0], np.float32)
+    coef = np.array([0.3, -0.2, 0.7, 0.1], np.float32)
+    x = F.SparseFeatures(torch.from_numpy(idx), torch.from_numpy(val))
+    jv, jg = pallas_glm.fused_sparse_value_grad(
+        JL.LogisticLoss, JF.SparseFeatures(jnp.asarray(idx), jnp.asarray(val)),
+        jnp.asarray(y), None, None, jnp.asarray(coef), interpret=True)
+    kv, kg = fvg.fused_sparse_value_grad_reference(
+        L.LogisticLoss, x, torch.from_numpy(y), None, None,
+        torch.from_numpy(coef))
+    f = np.ones(4, np.float32)
+    if route == "f64_coef":
+        norm, pcoef = N.no_normalization(), torch.from_numpy(coef).double()
+    else:
+        f = np.array([2.0, 0.5, 4.0, 0.25], np.float32)
+        norm = N.NormalizationContext(torch.from_numpy(f), None)
+        pcoef = torch.from_numpy(coef / f)
+    agg.reset_counts()
+    pv, pg = agg.value_and_gradient(L.LogisticLoss, x, torch.from_numpy(y),
+                                    None, None, pcoef, norm)
+    assert agg.routes["two_pass"] == 1
+    tol = dict(rtol=1e-6, atol=1e-6)
+    for v in (float(kv), float(jv)):
+        np.testing.assert_allclose(float(pv), v, **tol)
+    for g in (kg.numpy(), _np(jg)):
+        np.testing.assert_allclose(pg.numpy(), f * g, **tol)
+    # and the stray slot really added nothing
+    z = np.array([0.5 * 0.3, 2.0 * -0.2 + 0.25 * 0.7])
+    np.testing.assert_allclose(float(pv), np.sum(np.logaddexp(0, z) - y * z),
+                               rtol=1e-6)

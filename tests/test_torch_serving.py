@@ -213,23 +213,39 @@ def test_serving_model_from_arrays_matches_jax(engines):
 
 
 def test_every_batch_goes_through_the_margin_wrapper(engines, monkeypatch):
-    """The scorer calls the gather+margin wrapper once per batch, in both
-    modes, with every fixed shard concatenated against one theta."""
-    _, _, peng, _ = engines
+    """The scorer calls the GLMix margin wrapper once per batch, in both
+    modes: every random coordinate in ``full``, none in ``fixed_only``,
+    with every fixed shard side by side against one theta."""
+    d, _, peng, _ = engines
     calls = []
-    real = gm.gather_margin
+    real = gm.glmix_margin
 
-    def spy(idx, val, off, theta):
-        calls.append((tuple(idx.shape), int(theta.shape[0])))
-        return real(idx, val, off, theta)
+    def spy(state, rows, with_random):
+        calls.append((rows, with_random, state.k_fixed,
+                      int(state.theta.shape[0])))
+        return real(state, rows, with_random)
 
-    monkeypatch.setattr(gm, "gather_margin", spy)
+    monkeypatch.setattr(gm, "glmix_margin", spy)
     reqs = _requests(11, seed=5)
     for r in _as(pserving, reqs):
         peng.submit(r)
     peng.drain()
-    assert calls == [((8, 2 * PAD), sum(SHARDS.values())),
-                     ((4, 2 * PAD), sum(SHARDS.values()))]
+    width = sum(SHARDS.values())
+    assert calls == [(8, True, 2 * PAD, width), (4, True, 2 * PAD, width)]
+
+    # a queue past the shed depth: the first batches are fixed-only
+    calls.clear()
+    shed = pserving.ServingEngine.from_model_dir(
+        d, pserving.ServingConfig(max_batch=MAX_BATCH, feature_pad=PAD,
+                                  max_wait_s=0.0,
+                                  slo=pserving.SLOConfig(shed_queue_depth=8)),
+        device="cpu")
+    for r in _as(pserving, _requests(20, seed=8)):
+        assert shed.submit(r) is None
+    shed.drain()
+    # 20 requests: two shed batches of 8, then 4 scored in full
+    assert calls == [(8, False, 2 * PAD, width), (8, False, 2 * PAD, width),
+                     (4, True, 2 * PAD, width)]
 
 
 def test_stats_report_stages_and_batches(engines):
